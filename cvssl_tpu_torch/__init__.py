@@ -1,0 +1,10 @@
+"""cvssl_tpu_torch — the PyTorch/CUDA port of ``cvssl_tpu``.
+
+Mirrors the JAX package's module layout (``ops/``, ``models/``, ``data/``,
+``train/``, ``train/methods/``) so every module has an obvious counterpart.
+Layout is NCHW with the class axis at 1, as in the original torch code.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+The package imports torch, numpy and scipy only: nothing of JAX and nothing
+of ``cvssl_tpu``.
+"""

@@ -1,0 +1,193 @@
+"""Device-resident 2D dataset + in-step augmentation (port of
+``cvssl_tpu/data/device_store.py``: ``DeviceSliceStore`` in
+``mode="default"`` and ``gather_augment``).
+
+All train slices live on the card, pre-zoomed to the patch size; per step
+only the batch indices cross from the host. The reference's RandomGenerator
+(50% rot90+flip, else 50% rotate by an integer angle in [-20, 20)) runs on
+the device, batched, with the JAX package's exact three-shear rotation, so
+the same indices and draws give the same batch as JAX, bit for bit.
+
+The random draws (u1, u2, k, axis, aidx) come from a ``torch.Generator``
+(:func:`draw_augment`) and enter :func:`gather_augment` as tensors, so a
+test can inject them.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from scipy import ndimage
+
+_MAX_ANGLE = 20
+
+
+class DeviceSliceStore:
+    """All train slices resident on ``device``, pre-zoomed (order 0) to
+    ``patch_size``: images in ``image_dtype``, labels uint8. Every batch
+    gets the RandomGenerator augmentation (the JAX store's default
+    mode)."""
+
+    def __init__(self, dataset, patch_size: Tuple[int, int],
+                 image_dtype=torch.bfloat16, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DeviceSliceStore: no CUDA device; pass "
+                               "device='cpu' to run on the CPU")
+        n = len(dataset)
+        h, w = patch_size
+        images = np.zeros((n, h, w), np.float32)
+        labels = np.zeros((n, h, w), np.uint8)
+        for i in range(n):
+            sample = dataset[i]
+            img, lab = sample["image"], sample["label"]
+            zh, zw = h / img.shape[0], w / img.shape[1]
+            images[i] = ndimage.zoom(img, (zh, zw), order=0)
+            labels[i] = ndimage.zoom(lab, (zh, zw), order=0)
+        self.images = torch.from_numpy(images).to(device=device,
+                                                  dtype=image_dtype)
+        self.labels = torch.from_numpy(labels).to(device)
+        self.patch_size = tuple(patch_size)
+
+    def arrays(self):
+        return (self.images, self.labels)
+
+    def batch_fn(self, arrays, indices: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
+        images, labels = arrays
+        draws = draw_augment(indices.shape[0], generator, images.device)
+        return gather_augment(images, labels, indices, draws)
+
+
+def draw_augment(b: int, generator: Optional[torch.Generator],
+                 device) -> Dict[str, torch.Tensor]:
+    """The per-sample draws of one augmented batch: u1, u2 ~ U[0, 1),
+    k in {0..3}, axis in {0, 1}, aidx in [0, 40) (angle = aidx - 20)."""
+    def randint(high):
+        return torch.randint(0, high, (b,), generator=generator,
+                             device=device)
+    return {"u1": torch.rand(b, generator=generator, device=device),
+            "u2": torch.rand(b, generator=generator, device=device),
+            "k": randint(4), "axis": randint(2),
+            "aidx": randint(2 * _MAX_ANGLE)}
+
+
+def _rot90_k(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Per-sample rot90 of (B, H, W) by k (B,) in {0..3} (square images),
+    in numpy's direction."""
+    out = x
+    for r in (1, 2, 3):
+        out = torch.where((k == r)[:, None, None],
+                          torch.rot90(x, r, dims=(1, 2)), out)
+    return out
+
+
+def _flip_axis(x: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """Per-sample flip of (B, H, W): rows where axis == 0, else columns."""
+    return torch.where((axis == 0)[:, None, None], x.flip(1), x.flip(2))
+
+
+@functools.lru_cache(maxsize=None)
+def _shear_tables(h: int, w: int):
+    """Integer shift vectors of the three shears for every angle in
+    [-20, 20): (row_shift (40, h), col_shift (40, w)) as numpy int32;
+    shears 1 and 3 share row_shift. Same numpy arithmetic as the JAX
+    package, so the same tables."""
+    angles = np.arange(-_MAX_ANGLE, _MAX_ANGLE)
+    phi = angles * np.pi / 180.0
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ii = np.arange(h) - cy
+    jj = np.arange(w) - cx
+    a = -np.tan(phi / 2.0)[:, None]
+    b = np.sin(phi)[:, None]
+    row = np.round(a * ii[None, :]).astype(np.int32)
+    col = np.round(b * jj[None, :]).astype(np.int32)
+    return row, col
+
+
+@functools.lru_cache(maxsize=8)
+def _shear_tables_on(h: int, w: int, device: torch.device):
+    row, col = _shear_tables(h, w)
+    return (torch.from_numpy(row).to(device, torch.int64),
+            torch.from_numpy(col).to(device, torch.int64))
+
+
+def _cyclic_shift(arrs, s: torch.Tensor, axis: int):
+    """Per-row/column cyclic shift: out[..., j] = a[..., (j + s) mod N]
+    along ``axis`` (2: shift columns, one amount per (b, i); 1: shift rows,
+    one amount per (b, j)). One gather per array: on the card a gather is
+    a single coalesced pass (the TPU's roll-per-bit decomposition exists
+    because TPU gathers are slow); the result is the same permutation."""
+    n = arrs[0].shape[axis]
+    if axis == 2:
+        idx = torch.arange(n, device=s.device)[None, None, :] + s[:, :, None]
+    else:
+        idx = torch.arange(n, device=s.device)[None, :, None] + s[:, None, :]
+    idx = (idx % n).expand(arrs[0].shape)
+    return [torch.gather(a, axis, idx) for a in arrs]
+
+
+def _shift_cols(arrs, valids, s):
+    """out[b, i, j] = arr[b, i, j + s[b, i]] with zero fill (horizontal
+    shear); ``valids`` (B, H, W) is sheared alongside."""
+    w = arrs[0].shape[2]
+    j_s = torch.arange(w, device=s.device)[None, None, :] + s[:, :, None]
+    inb = (j_s >= 0) & (j_s < w)
+    shifted = _cyclic_shift(list(arrs) + [valids], s, axis=2)
+    outs = [torch.where(inb, a, 0) for a in shifted[:-1]]
+    return outs, inb & shifted[-1]
+
+
+def _shift_rows(arrs, valids, s):
+    """out[b, i, j] = arr[b, i + s[b, j], j] with zero fill (vertical
+    shear)."""
+    h = arrs[0].shape[1]
+    i_s = torch.arange(h, device=s.device)[None, :, None] + s[:, None, :]
+    inb = (i_s >= 0) & (i_s < h)
+    shifted = _cyclic_shift(list(arrs) + [valids], s, axis=1)
+    outs = [torch.where(inb, a, 0) for a in shifted[:-1]]
+    return outs, inb & shifted[-1]
+
+
+def _rotate_shear3(img: torch.Tensor, lab: torch.Tensor,
+                   angle_idx: torch.Tensor):
+    """Batched nearest rotation of (B, H, W) images and labels by per-sample
+    integer angles (angle_idx - 20 degrees) via three shears (Paeth), zero
+    fill outside the source frame. JAX: ``device_store._rotate_shear3``."""
+    b, h, w = img.shape
+    row_t, col_t = _shear_tables_on(h, w, img.device)
+    srow = row_t[angle_idx]                       # (B, H)
+    scol = col_t[angle_idx]                       # (B, W)
+    valid = torch.ones((b, h, w), dtype=torch.bool, device=img.device)
+    (i1, l1), v1 = _shift_cols((img, lab), valid, srow)
+    (i2, l2), v2 = _shift_rows((i1, l1), v1, scol)
+    (i3, l3), v3 = _shift_cols((i2, l2), v2, srow)
+    return torch.where(v3, i3, 0), torch.where(v3, l3, 0)
+
+
+def gather_augment(images: torch.Tensor, labels: torch.Tensor,
+                   indices: torch.Tensor, draws: Dict[str, torch.Tensor]):
+    """Batch assembly: gather rows, per-sample augmentation from ``draws``,
+    NCHW float32 image + int32 label.
+
+    If u1 > .5: rot90(k) then flip(axis); elif u2 > .5: rotate by
+    aidx - 20 degrees; else unchanged (reference ``dataset.py:415-419``).
+    Every variant is computed for the whole batch and selected per sample;
+    the ops are value-exact in the storage dtypes (bf16 image, uint8 label)
+    and cast once at the end. JAX: ``device_store.gather_augment``."""
+    img = images[indices]
+    lab = labels[indices]
+    rf_i = _flip_axis(_rot90_k(img, draws["k"]), draws["axis"])
+    rf_l = _flip_axis(_rot90_k(lab, draws["k"]), draws["axis"])
+    rot_i, rot_l = _rotate_shear3(img, lab, draws["aidx"])
+    c1 = (draws["u1"] > 0.5)[:, None, None]
+    c2 = (draws["u2"] > 0.5)[:, None, None]
+    img = torch.where(c1, rf_i, torch.where(c2, rot_i, img))
+    lab = torch.where(c1, rf_l, torch.where(c2, rot_l, lab))
+    # rot90 views leave transposed strides behind; the batch is contiguous
+    contiguous = torch.contiguous_format
+    return {"image": img.to(torch.float32, memory_format=contiguous)[:, None],
+            "label": lab.to(torch.int32, memory_format=contiguous),
+            "idx": indices.to(torch.int32)}

@@ -1,0 +1,24 @@
+"""2D model registry (port of ``cvssl_tpu/models/factory.py``; the plain
+UNet only so far)."""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from torch import nn
+
+from cvssl_tpu_torch.models import unet
+
+_REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
+    "unet": lambda in_chns, class_num, **kw: unet.UNet(
+        in_chns=in_chns, num_classes=class_num, **kw),
+}
+
+
+def net_factory(net_type: str = "unet", in_chns: int = 1,
+                class_num: int = 3, **kwargs) -> nn.Module:
+    """2D registry (reference ``net_factory.py:77-107``)."""
+    if net_type not in _REGISTRY_2D:
+        raise ValueError(
+            f"unknown 2D net {net_type!r}; available: {sorted(_REGISTRY_2D)}")
+    return _REGISTRY_2D[net_type](in_chns=in_chns, class_num=class_num,
+                                  **kwargs)

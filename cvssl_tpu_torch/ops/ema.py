@@ -1,0 +1,25 @@
+"""Mean-teacher EMA (port of ``cvssl_tpu/ops/ema.py``)."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def ema_decay_schedule(step: int, alpha: float = 0.99) -> float:
+    """Warm-up decay min(1 - 1/(t+1), alpha) in float32; ``step`` is the
+    global iteration before its increment. JAX: ``ema_decay_schedule``."""
+    t = np.float32(step)
+    return float(min(np.float32(1.0) - np.float32(1.0) / (t + np.float32(1.0)),
+                     np.float32(alpha)))
+
+
+@torch.no_grad()
+def ema_update(ema: Sequence[torch.Tensor], new: Sequence[torch.Tensor],
+               decay: float) -> None:
+    """ema <- decay * ema + (1 - decay) * new, in place over two matching
+    lists of tensors. JAX: ``ema_update`` (which returns a new tree)."""
+    ema = list(ema)
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, list(new), alpha=1.0 - decay)

@@ -1,0 +1,44 @@
+"""Optimizer and LR schedule (port of ``cvssl_tpu/ops/schedules.py``)."""
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+
+def poly_lr(base_lr: float, max_iterations: int,
+            power: float = 0.9) -> Callable[[int], float]:
+    """lr(t) = base_lr * (1 - t / max_it)^power, in float32 like the JAX
+    schedule. JAX: ``schedules.poly_lr``."""
+    def schedule(step: int) -> float:
+        frac = np.float32(1.0) - np.float32(step) / np.float32(max_iterations)
+        return float(np.float32(base_lr)
+                     * np.maximum(frac, np.float32(0.0)) ** np.float32(power))
+    return schedule
+
+
+class ReferenceSGD(torch.optim.SGD):
+    """SGD(momentum=0.9, weight_decay=1e-4) whose learning rate follows
+    ``poly_lr`` of ``count``, the number of updates applied so far (optax's
+    schedule count). JAX: ``schedules.reference_sgd``.
+
+    Weight decay is added to the gradient before momentum, in torch's SGD as
+    in the optax chain (``add_decayed_weights`` before ``trace``)."""
+
+    def __init__(self, params: Iterable[torch.Tensor], base_lr: float,
+                 max_iterations: int, momentum: float = 0.9,
+                 weight_decay: float = 1e-4, power: float = 0.9):
+        super().__init__(params, lr=base_lr, momentum=momentum,
+                         weight_decay=weight_decay)
+        self.schedule = poly_lr(base_lr, max_iterations, power)
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        lr = self.schedule(self.count)
+        for group in self.param_groups:
+            group["lr"] = lr
+        loss = super().step(closure)
+        self.count += 1
+        return loss

@@ -1,0 +1,6 @@
+"""SSL method modules. Importing this package registers the methods."""
+
+from cvssl_tpu_torch.train.methods.base import (  # noqa: F401
+    Method, get_method, register_method)
+from cvssl_tpu_torch.train.methods import supervised  # noqa: F401
+from cvssl_tpu_torch.train.methods import mean_teacher  # noqa: F401

@@ -1,0 +1,74 @@
+"""Train state + per-step forward context (port of
+``cvssl_tpu/train/state.py``).
+
+JAX threads an immutable pytree through a jitted step; here the state holds
+the live modules and optimizers, which the engine's step updates in place
+(and returns, so callers read ``state, metrics = engine.train_step(...)`` as
+in JAX).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                                   # global iteration
+    models: Dict[str, nn.Module]                # students, train mode
+    optimizers: Dict[str, torch.optim.Optimizer]
+    teachers: Dict[str, nn.Module]              # EMA teachers, train mode
+    generator: torch.Generator                  # dropout/noise/augmentation
+    extra: Any = ()                             # method-specific state
+
+
+class StepCtx:
+    """Forward helper for one step.
+
+    Student and teacher forwards both run in train mode: BatchNorm
+    normalises with batch statistics and the running buffers of both update
+    (torch buffers self-update during the teacher's train-mode forward,
+    reference ``train_mean_teacher_2D.py:214``). Dropout bytes and method
+    noise come from the state's generator."""
+
+    def __init__(self, cfg, models: Dict[str, nn.Module],
+                 teachers: Dict[str, nn.Module],
+                 generator: Optional[torch.Generator], step: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        self.cfg = cfg
+        self.models = models
+        self.teachers = teachers
+        self.generator = generator
+        self.step = step
+        self.compute_dtype = compute_dtype
+
+    def _autocast(self, x: torch.Tensor):
+        if self.compute_dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(x.device.type, dtype=self.compute_dtype)
+
+    def forward(self, name: str, x: torch.Tensor):
+        """Student forward (train mode; autograd on)."""
+        model = self.models[name]
+        with self._autocast(x):
+            return model(x, self.generator)
+
+    def forward_teacher(self, name: str, x: torch.Tensor):
+        """EMA-teacher forward under no_grad, in train mode like the
+        reference."""
+        model = self.teachers[name]
+        with torch.no_grad(), self._autocast(x):
+            return model(x, self.generator)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        """Standard normal draws from the step's generator."""
+        return torch.randn(shape, generator=self.generator, device=device)
+
+    def consistency_weight(self) -> float:
+        from cvssl_tpu_torch.ops.ramps import consistency_weight
+        return consistency_weight(self.step, self.cfg.consistency,
+                                  self.cfg.consistency_rampup)
