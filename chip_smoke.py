@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card. Builds the Triton kernels from the sources in this
-checkout (cache in ``build/triton``), then runs, in order; any failure ends
-the run with a non-zero exit:
+Needs one CUDA card. Builds the kernels from the sources in this checkout
+(Triton cache in ``build/triton``; the CUDA conv kernels with ``nvcc`` into
+``build/kernels``, started in the background first), then runs, in order;
+any failure ends the run with a non-zero exit:
 
-1. device: CUDA must be available; prints the card's name and power limit;
+1. device: CUDA must be available; prints the card's name and power limit,
+   and whether ``h5py`` is installed (the fit phase does not need it);
 2. kernels against their plain version: the fused CE+Dice forward and
    backward on the card at the main-path shape (12, 4, 256, 256) and a
    ragged (3, 4, 37, 41), f32 and bf16 logits, cotangents 0.3 / 1.7, held
@@ -21,15 +23,37 @@ the run with a non-zero exit:
    memory, and a short profile of where the step's device time goes;
 4. eval forward: ``predict_fn`` on a batch, and the eval-mode forward in
    float32 on the card against the same model on the CPU;
-5. one JSON line of the kernels, then the result line
+5. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
+   three against the plain version run on the card in float64 at
+   (24, 256, 256, 16) f32 and bf16 input (tile_h 32) and at the JAX tests'
+   (2, 32, 32, 16) and (1, 64, 48, 16) f32 (tile_h = H/2), within 1e-5 of
+   the output's largest element; then each one's time beside the plain
+   version's, the bound and ``F.conv2d``'s time (channels-last f32, TF32
+   off); then their own path: each function once at each of those four
+   cases, launch counts from 0;
+6. ``fit`` at full width through the port's API: mean-teacher UNet, batch
+   24 = 12 + 12, 256^2, 4 classes, dtype auto, on in-memory blob data of
+   ACDC's geometry (1312 train slices, 136 labeled; 20 val volumes of
+   10 x 256^2, so validation runs resident on the card); 400 iterations
+   with val and checkpoints every 200 into a temporary snapshot
+   directory, then a second ``fit`` to 600 that must resume from 400; the
+   checkpoint files, the val table, the fused kernel's launches (one per
+   iteration), slices/s including validation and checkpoints, the val
+   pass's time and the EDT's peak memory;
+7. one JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import glob
+import importlib.util
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -45,6 +69,13 @@ GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # near-zero gradient elements need an absolute floor: 1e-5 of the largest
 GRAD_ATOL_OF_MAX = 1e-5
 MEASURE_STEPS = 30
+CONV_CASES = (((24, 256, 256, 16), "float32", 32),
+              ((24, 256, 256, 16), "bfloat16", 32),
+              ((2, 32, 32, 16), "float32", 16),
+              ((1, 64, 48, 16), "float32", 32))
+CONV_REL_TOL = 1e-5        # of the float64 output's largest element
+FIT_VAL_VOLUMES, FIT_VAL_SLICES = 20, 10
+FIT_STEPS, FIT_RESUME_STEPS, FIT_EVERY = 400, 600, 200
 
 # (memory bytes/s, float32 non-tensor FLOP/s) by card; NVIDIA data sheets,
 # dense rates at the full power limit
@@ -67,6 +98,37 @@ class SyntheticACDC:
         r = np.random.default_rng(i)
         return {"image": r.normal(0.5, 0.2, self._shape).astype(np.float32),
                 "label": r.integers(0, 4, self._shape).astype(np.uint8)}
+
+
+class BlobSlices:
+    """In-memory train slices of ACDC's count and geometry with the blob
+    generator of ``data/synthetic.py`` (one disc per class), so the model
+    can learn and validation Dice means something."""
+
+    def __init__(self, n=ACDC_TRAIN_SLICES, shape=(232, 256)):
+        from cvssl_tpu_torch.data.synthetic import blob_image
+        self._items = [blob_image(np.random.default_rng(i), shape, CLASSES)
+                       for i in range(n)]
+
+    def __len__(self):
+        return len(self._items)
+
+    def __getitem__(self, i):
+        image, label = self._items[i]
+        return {"image": image, "label": label}
+
+
+def blob_volumes(n=FIT_VAL_VOLUMES, slices=FIT_VAL_SLICES, seed=10_000):
+    """Uniform val volumes (slices, 256, 256) of blob slices."""
+    from cvssl_tpu_torch.data.synthetic import blob_image
+    rng = np.random.default_rng(seed)
+    vols = []
+    for _ in range(n):
+        pairs = [blob_image(rng, (PATCH, PATCH), CLASSES)
+                 for _ in range(slices)]
+        vols.append({"image": np.stack([p[0] for p in pairs]),
+                     "label": np.stack([p[1] for p in pairs])})
+    return vols
 
 
 def card_rates(name: str):
@@ -355,13 +417,229 @@ def check_eval(engine, state, store):
         raise SystemExit("f32 eval forward on the card disagrees with CPU")
 
 
+def check_conv(device):
+    """Phase 5a: the three conv kernels against the plain version in
+    float64 on the card (bf16 inputs: float64 of the bf16-rounded values);
+    returns the largest absolute error of each kernel."""
+    import torch
+    from cvssl_tpu_torch.ops import conv3x3_p8 as cv
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    err = {name: 0.0 for name in cv.LAUNCHES}
+    for shape, dtype, tile_h in CONV_CASES:
+        x = torch.randn(shape, generator=gen, device=device).to(
+            getattr(torch, dtype))
+        k = 0.1 * torch.randn((3, 3, 16, 16), generator=gen, device=device)
+        want = cv.conv3x3_p8_plain(x.double(), k.double())
+        scale = float(want.abs().max())
+        for name in cv.LAUNCHES:
+            got = getattr(cv, name)(x, k, tile_h=tile_h)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32 or got.shape != want.shape:
+                raise SystemExit(f"{name}: {got.dtype} {tuple(got.shape)}")
+            e = float((got.double() - want).abs().max())
+            err[name] = max(err[name], e)
+            print(f"conv check {name} {shape} {dtype} tile_h {tile_h}: max "
+                  f"abs err {e:.3e} ({e / scale:.3e} of max |out|)")
+            if not e <= CONV_REL_TOL * scale:
+                raise SystemExit(f"{name} {shape} {dtype}: error {e} above "
+                                 f"{CONV_REL_TOL} x {scale}")
+    return err
+
+
+def time_conv(device, mem_bw, f32_rate):
+    """Phase 5b at the full shape (24, 256, 256, 16), f32 input: kernel,
+    plain version (f32), bound, and F.conv2d (channels-last, TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+    from cvssl_tpu_torch.ops import conv3x3_p8 as cv
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(3)
+    shape = CONV_CASES[0][0]
+    x = torch.randn(shape, generator=gen, device=device)
+    xb = x.to(torch.bfloat16)
+    k = 0.1 * torch.randn((3, 3, 16, 16), generator=gen, device=device)
+    flush = torch.empty(2 ** 28, dtype=torch.int32, device=device)
+    b, h, w, c = shape
+    # x (B, H, W, C) contiguous seen as (B, C, H, W) is channels-last
+    xn, wn = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    ref = F.conv2d(xn, wn, padding=1).permute(0, 2, 3, 1)
+    got = cv.conv3x3_p8(x, k)
+    lib_err = float((ref - got).abs().max() / got.abs().max())
+    ops = b * h * w * c * c * 9 * 2
+    in_out = {"float32": x.numel() * 4 + k.numel() * 4 + b * h * w * c * 4,
+              "bfloat16": x.numel() * 2 + k.numel() * 4 + b * h * w * c * 4}
+    t_ops = ops / f32_rate * 1e3
+    library_ms = median_ms(lambda: F.conv2d(xn, wn, padding=1), flush)
+    plain_ms = median_ms(lambda: cv.conv3x3_p8_plain(x, k), flush)
+    rows = {}
+    for name in cv.LAUNCHES:
+        fn = getattr(cv, name)
+        t_bytes = in_out["float32"] / mem_bw * 1e3
+        rows[name] = {"ms": median_ms(lambda: fn(x, k), flush),
+                      "ms_bf16": median_ms(lambda: fn(xb, k), flush),
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations"}
+        r = rows[name]
+        print(f"kernel {name}: kernel_ms {r['ms']:.6f} (bf16 input "
+              f"{r['ms_bf16']:.6f}) plain_ms {plain_ms:.6f} library_ms "
+              f"{library_ms:.6f} bound_us {r['bound_ms'] * 1e3:.3f} "
+              f"({r['bound_by']}: {ops} flop = {t_ops * 1e3:.3f} us; bytes "
+              f"f32 {in_out['float32']} = "
+              f"{in_out['float32'] / mem_bw * 1e6:.3f} us, bf16 "
+              f"{in_out['bfloat16']} = "
+              f"{in_out['bfloat16'] / mem_bw * 1e6:.3f} us)")
+    print(f"conv: F.conv2d (channels-last f32, TF32 off) vs conv3x3_p8 max "
+          f"rel err {lib_err:.2e}")
+    return rows
+
+
+def drive_conv(device):
+    """Phase 5c, the conv kernels' own path: each public function once at
+    each case, as the JAX package uses them (its tests' shapes and the
+    docstring's timing shape), launch counts from 0."""
+    import torch
+    from cvssl_tpu_torch.ops import conv3x3_p8 as cv
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    k = 0.1 * torch.randn((3, 3, 16, 16), generator=gen, device=device)
+    inputs = [(torch.randn(shape, generator=gen, device=device).to(
+        getattr(torch, dtype)), tile_h) for shape, dtype, tile_h in CONV_CASES]
+    cv.reset_launches()
+    outs = [getattr(cv, name)(x, k, tile_h=tile_h)
+            for name in cv.LAUNCHES for x, tile_h in inputs]
+    torch.cuda.synchronize()
+    launches = dict(cv.LAUNCHES)
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise SystemExit("conv path: non-finite output")
+    if any(n != len(CONV_CASES) for n in launches.values()):
+        raise SystemExit(f"conv path launches {launches}")
+    print(f"conv path: launches {launches}")
+    return launches
+
+
+def run_fit(device, card):
+    """Phase 6: fit, its files, the val table, resume, throughput."""
+    import torch
+    from cvssl_tpu_torch.data.sampler import TwoStreamBatchSampler
+    from cvssl_tpu_torch.ops import edt
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.config import TrainConfig
+    from cvssl_tpu_torch.train.engine import Engine, fit
+
+    t0 = time.perf_counter()
+    train_ds, val_ds = BlobSlices(), blob_volumes()
+    print(f"fit data: {len(train_ds)} train slices, {len(val_ds)} val "
+          f"volumes of {val_ds[0]['image'].shape}, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    cfg = TrainConfig(method="mean_teacher", model="unet",
+                      num_classes=CLASSES, batch_size=BATCH,
+                      labeled_bs=LABELED_BS, patch_size=(PATCH, PATCH),
+                      labeled_slices_override=ACDC_LABELED_SLICES,
+                      val_every=FIT_EVERY, ckpt_every=FIT_EVERY,
+                      log_every=100, snapshot_root=tmp, exp="ACDC/smoke")
+    snap = cfg.snapshot_path()
+
+    def sampler():  # a fresh stream per fit call, as a restarted run has
+        return TwoStreamBatchSampler(
+            list(range(ACDC_LABELED_SLICES)),
+            list(range(ACDC_LABELED_SLICES, ACDC_TRAIN_SLICES)),
+            BATCH, BATCH - LABELED_BS, rng=np.random.default_rng(cfg.seed))
+
+    results = []
+    for steps in (FIT_STEPS, FIT_RESUME_STEPS):
+        engine = Engine(cfg)
+        fcd.reset_launches()
+        t0 = time.perf_counter()
+        res = fit(cfg, engine=engine, max_steps=steps,
+                  data=(train_ds, sampler(), val_ds))
+        wall = time.perf_counter() - t0
+        launches = dict(fcd.LAUNCHES)
+        ran = steps - (results[-1]["iterations"] if results else 0)
+        if res["iterations"] != steps:
+            raise SystemExit(f"fit stopped at {res['iterations']}")
+        if any(v != ran for v in launches.values()):
+            raise SystemExit(f"fit ran {ran} iterations, launches "
+                             f"{launches}")
+        print(f"fit to {steps}: {ran} iterations, {res['slices_per_sec']:.2f}"
+              f" slices/s including validation and checkpoints (loop only; "
+              f"{wall:.1f} s wall with store build and init), val passes "
+              f"{[round(v, 3) for v in res['val_seconds']]} s, fused "
+              f"launches {launches}, best dice {res['best_dice']}, on {card}")
+        results.append(res)
+    with open(os.path.join(snap, "log.txt")) as f:
+        log = f.read()
+    if f"resumed from iteration {FIT_STEPS}" not in log:
+        raise SystemExit("second fit did not log a resume from "
+                         f"{FIT_STEPS}")
+    want = [f"iter_{FIT_EVERY}_dice_*.ckpt", "unet_best_model.ckpt",
+            f"iter_{FIT_STEPS}.ckpt", f"ema_model_iter_{FIT_STEPS}.ckpt",
+            f"iter_{FIT_RESUME_STEPS}.ckpt"]
+    for pattern in want:
+        if not glob.glob(os.path.join(snap, pattern)):
+            raise SystemExit(f"fit: no {pattern} in {snap}")
+    full = sorted(os.path.basename(p) for p in
+                  glob.glob(os.path.join(snap, "model_iter_*.ckpt")))
+    if full != [f"model_iter_{FIT_STEPS}.ckpt",
+                f"model_iter_{FIT_RESUME_STEPS}.ckpt"]:
+        raise SystemExit(f"prune_old left {full}")
+    print(f"fit files: {sorted(os.listdir(snap))}")
+
+    # the val table of the final state, the val pass's time and the EDT's
+    # own peak memory (predictions of the resident val set as input)
+    state = results[-1]["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = engine.validate(state, val_ds)
+    val_s = time.perf_counter() - t0
+    if not (np.isfinite(table).all() and (table[:, 0] >= 0).all()
+            and (table[:, 0] <= 1).all()):
+        raise SystemExit(f"val table {table}")
+    store = engine._val_resident_store(val_ds, cfg.patch_size)
+    from cvssl_tpu_torch.eval import val2d
+    pred = val2d.predict_slices(engine.predict_fn("model", state),
+                                store["images"]).reshape(
+        store["labels"].shape)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    edt.val_metrics(pred, store["labels"], CLASSES).sum(dim=0).cpu()
+    edt_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"fit val table (dice, hd95) per class: {table.tolist()}; val "
+          f"pass {val_s:.3f} s; EDT metrics alone {edt_s:.3f} s, peak "
+          f"{peak / 2 ** 20:.1f} MiB above its inputs, on {card}")
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    from cvssl_tpu_torch.ops import conv3x3_p8 as cv
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+
+    # nvcc runs in the background while the Triton kernels build and run
+    built = {}
+
+    def build():
+        try:
+            t0 = time.perf_counter()
+            cv._library()
+            built["s"] = time.perf_counter() - t0
+        except Exception as e:  # re-raised in the main thread below
+            built["error"] = e
+    builder = threading.Thread(target=build)
+    builder.start()
 
     device = torch.device("cuda")
     smi = subprocess.run(
@@ -372,7 +650,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     mem_bw, f32_rate = card_rates(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {name}; "
-          f"rates {mem_bw / 1e12} TB/s, {f32_rate / 1e12} TFLOP/s f32")
+          f"rates {mem_bw / 1e12} TB/s, {f32_rate / 1e12} TFLOP/s f32; "
+          f"h5py installed: {importlib.util.find_spec('h5py') is not None}")
 
     t0 = time.perf_counter()
     err = check_kernels(device)
@@ -380,6 +659,19 @@ def main() -> int:
     timing = time_kernels(device, mem_bw, f32_rate)
     engine, state, store, launches, _ = run_main_path(device, smi)
     check_eval(engine, state, store)
+    del engine, state, store
+
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    log = [ln for ln in cv.BUILD_LOG["log"].splitlines()
+           if "registers" in ln or "spill" in ln]
+    print(f"conv kernels built in {built['s']:.1f} s (nvcc, in the "
+          f"background):\n  " + "\n  ".join(log))
+    conv_err = check_conv(device)
+    conv_timing = time_conv(device, mem_bw, f32_rate)
+    conv_launches = drive_conv(device)
+    run_fit(device, smi)
 
     source = "cvssl_tpu_torch/ops/fused_ce_dice.py"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",
@@ -391,6 +683,18 @@ def main() -> int:
                 "bound_ms": timing[k]["bound_ms"],
                 "bound_by": timing[k]["bound_by"], "library_ms": None}
                for k in fcd.LAUNCHES]
+    replaces = {"conv3x3_p8": "cvssl_tpu/ops/pallas_conv.py:215",
+                "conv3x3_p8_dma": "cvssl_tpu/ops/pallas_conv.py:112",
+                "conv3x3_p8_db": "cvssl_tpu/ops/pallas_conv.py:182"}
+    kernels += [{"name": k, "route": "cuda",
+                 "source": "cvssl_tpu_torch/csrc/conv3x3_p8.cu",
+                 "replaces": replaces[k], "launches": conv_launches[k],
+                 "max_abs_err": conv_err[k], "ms": conv_timing[k]["ms"],
+                 "plain_ms": conv_timing[k]["plain_ms"],
+                 "bound_ms": conv_timing[k]["bound_ms"],
+                 "bound_by": conv_timing[k]["bound_by"],
+                 "library_ms": conv_timing[k]["library_ms"]}
+                for k in cv.LAUNCHES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,74 @@
+"""h5 slice dataset + label-budget tables (port of
+``cvssl_tpu/data/datasets.py``: ``SliceDataset``, ``patients_to_slices`` and
+the ACDC/Prostate tables; ``VolumeDataset`` waits for the 3D slice).
+
+* ``SliceDataset`` mirrors the reference's ``BaseDataSets``: list files
+  ``train_slices.list`` / ``val.list``; train slices at
+  ``data/slices/{case}.h5``, val volumes at ``data/{case}.h5``; each h5 holds
+  ``image`` and ``label``.
+* ``patients_to_slices`` maps a labeled-patient budget to a slice count;
+  unknown dataset names raise (the reference's 'Prostate' branch is
+  always-true).
+
+Samples are numpy dicts. ``h5py`` is imported where a file is read, so the
+package imports where ``h5py`` is not installed.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional
+
+import numpy as np
+
+ACDC_SLICE_TABLE = {1: 32, 3: 68, 7: 136, 14: 256, 21: 396, 28: 512,
+                    35: 664, 140: 1312}
+PROSTATE_SLICE_TABLE = {2: 27, 4: 53, 8: 120, 12: 179, 16: 256, 21: 312,
+                        42: 623}
+
+
+def patients_to_slices(dataset: str, patients_num) -> int:
+    """Map a labeled-patient budget to a slice count."""
+    name = os.path.basename(os.path.normpath(str(dataset))) or str(dataset)
+    if "ACDC" in str(dataset):
+        table = ACDC_SLICE_TABLE
+    elif "Prostate" in str(dataset):
+        table = PROSTATE_SLICE_TABLE
+    else:
+        raise ValueError(f"no slice table for dataset {name!r}")
+    return table[int(patients_num)]
+
+
+class SliceDataset:
+    """2D per-slice dataset (ACDC / Prostate layout)."""
+
+    def __init__(self, base_dir: str, split: str = "train",
+                 num: Optional[int] = None,
+                 transform: Optional[Callable] = None):
+        self.base_dir = base_dir
+        self.split = split
+        self.transform = transform
+        list_file = "train_slices.list" if split == "train" else "val.list"
+        with open(os.path.join(base_dir, list_file)) as f:
+            self.sample_list = [ln.strip() for ln in f if ln.strip()]
+        if num is not None and split == "train":
+            self.sample_list = self.sample_list[:num]
+
+    def __len__(self):
+        return len(self.sample_list)
+
+    def case_path(self, case: str) -> str:
+        sub = "data/slices" if self.split == "train" else "data"
+        return os.path.join(self.base_dir, sub, f"{case}.h5")
+
+    def __getitem__(self, idx: int) -> dict:
+        import h5py
+        case = self.sample_list[idx]
+        with h5py.File(self.case_path(case), "r") as h5f:
+            image = h5f["image"][:]
+            label = h5f["label"][:]
+        sample = {"image": image.astype(np.float32), "label": label,
+                  "case": case}
+        if self.transform is not None:
+            sample = self.transform(sample)
+        sample["idx"] = idx
+        return sample

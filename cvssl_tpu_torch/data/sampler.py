@@ -1,6 +1,6 @@
-"""Two-stream batch composition for semi-supervised training (the port's
-own copy of ``cvssl_tpu/data/sampler.py::TwoStreamBatchSampler``; numpy
-only, so the same ``Generator`` gives the same index stream).
+"""Batch samplers (the port's own copy of ``cvssl_tpu/data/sampler.py``:
+``TwoStreamBatchSampler`` and ``ShuffleBatchSampler``; numpy only, so the
+same ``Generator`` gives the same index stream).
 
 Each batch = (batch_size - secondary_batch_size) primary (labeled) indices +
 secondary_batch_size secondary (unlabeled) indices; one epoch is one pass
@@ -47,6 +47,30 @@ class TwoStreamBatchSampler:
 
     def epochs(self) -> Iterator[List[int]]:
         """Endless stream of batches, epoch after epoch."""
+        while True:
+            yield from iter(self)
+
+
+class ShuffleBatchSampler:
+    """Plain shuffling batch sampler (supervised baseline; DataLoader
+    shuffle=True equivalent, drop_last). JAX: ``sampler.ShuffleBatchSampler``.
+    """
+
+    def __init__(self, num_samples: int, batch_size: int, rng=None):
+        self.num_samples = num_samples
+        self.batch_size = batch_size
+        self.rng = rng or np.random.default_rng()
+
+    def __iter__(self) -> Iterator[List[int]]:
+        perm = self.rng.permutation(self.num_samples)
+        for i in range(0, self.num_samples - self.batch_size + 1,
+                       self.batch_size):
+            yield list(perm[i:i + self.batch_size])
+
+    def __len__(self):
+        return self.num_samples // self.batch_size
+
+    def epochs(self) -> Iterator[List[int]]:
         while True:
             yield from iter(self)
 

@@ -10,6 +10,8 @@ TPU are accepted and inert here:
   ``torch.Generator``s.
 * ``compile_cache``: XLA's persistent compilation cache.
 * ``dcn_slices``: mesh folding across TPU hosts.
+* ``num_workers``: host data-pipeline workers; the port trains from the
+  device-resident store only.
 
 ``num_devices`` must be None or 1: the port trains on one card so far.
 ``fused_loss`` must be None or True: the fused CE+Dice kernel is always on.
@@ -17,6 +19,7 @@ TPU are accepted and inert here:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -82,7 +85,7 @@ class TrainConfig:
     dim: int = 2                       # 2 or 3 (dataset/model family)
     num_devices: Optional[int] = None  # None or 1
     dcn_slices: Optional[int] = None   # inert (TPU mesh folding)
-    profile_dir: Optional[str] = None  # torch.profiler trace output
+    profile_dir: Optional[str] = None  # not ported yet: fit raises
     compile_cache: Optional[str] = "auto"  # inert (XLA compilation cache)
     vit_kwargs: Optional[dict] = None
     pretrained_ckpt: Optional[str] = None
@@ -94,6 +97,21 @@ class TrainConfig:
         if self.fused_loss is False:
             raise ValueError("the port always runs the fused CE+Dice "
                              "kernel: fused_loss must be None or True")
+
+    @property
+    def labeled_slices(self) -> int:
+        """Labeled train slices: the override, else the dataset's
+        patients-to-slices table."""
+        if self.labeled_slices_override is not None:
+            return self.labeled_slices_override
+        from cvssl_tpu_torch.data.datasets import patients_to_slices
+        return patients_to_slices(self.root_path, self.labeled_num)
+
+    def snapshot_path(self) -> str:
+        """``{snapshot_root}/{exp}_{labeled_num}_labeled/{model}``."""
+        return os.path.join(self.snapshot_root,
+                            f"{self.exp}_{self.labeled_num}_labeled",
+                            self.model)
 
     def compute_dtype(self, device) -> torch.dtype:
         """Resolve ``dtype`` for ``device``: "auto" is bfloat16 on CUDA and

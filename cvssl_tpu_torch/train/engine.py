@@ -1,6 +1,7 @@
 """The training engine (port of ``cvssl_tpu/train/engine.py``: state
 construction, the step body, the device-store path, a K-step loop standing
-in for ``train_steps_scan``, and the eval-mode predictor).
+in for ``train_steps_scan``, the eval-mode predictor, 2D validation, and the
+``fit`` loop with its validation and checkpoint cadence).
 
 One step: zero the gradients, run the method's loss through a ``StepCtx``
 (student and teacher forwards in train mode, under bfloat16 autocast when
@@ -19,15 +20,25 @@ autocast, with float32 parameters, BatchNorm statistics and losses.
 from __future__ import annotations
 
 import copy
-from typing import Optional, Sequence
+import dataclasses
+import os
+import time
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from cvssl_tpu_torch.data.datasets import SliceDataset
+from cvssl_tpu_torch.data.sampler import (ShuffleBatchSampler,
+                                          TwoStreamBatchSampler)
+from cvssl_tpu_torch.eval import val2d
+from cvssl_tpu_torch.ops import edt
 from cvssl_tpu_torch.ops.ema import ema_decay_schedule, ema_update
 from cvssl_tpu_torch.train.config import TrainConfig
 from cvssl_tpu_torch.train.methods.base import Method, get_method
 from cvssl_tpu_torch.train.state import StepCtx, TrainState
+from cvssl_tpu_torch.utils import checkpoint as ckpt
+from cvssl_tpu_torch.utils.logging import MetricsWriter, setup_logging
 
 
 class Engine:
@@ -44,6 +55,9 @@ class Engine:
         self.method = method or get_method(cfg.method, cfg)
         self.compute_dtype = cfg.compute_dtype(self.device)
         self.store = None  # optional device-resident data store
+        # on the card the val set is uploaded once (key: id of the dataset,
+        # patch size; the entry holds the dataset, so the id stays its own)
+        self._val_store: Dict[tuple, Optional[dict]] = {}
 
     # ------------------------------------------------------------------
     # state construction
@@ -139,3 +153,261 @@ class Engine:
                 model.train()
             return out.float().argmax(dim=1).to(torch.uint8)
         return predict
+
+    # ------------------------------------------------------------------
+    # validation
+    # ------------------------------------------------------------------
+    def validate(self, state: TrainState, val_dataset, name: str = None):
+        """Per-class (dice, hd95) means over a 2D val set of volumes,
+        (classes-1, 2). On the card a uniform val set at patch resolution
+        is uploaded once and the forward, argmax and EDT metrics all run
+        there, so only the (classes-1, 2) table comes back; otherwise
+        ``val2d.evaluate``."""
+        name = name or self.method.eval_model_names()[0]
+        size = self.cfg.patch_size
+        if self.cfg.patch_size2 and name == "model2":
+            size = self.cfg.patch_size2
+        if self.cfg.dim == 3:
+            raise NotImplementedError("3D validation is not ported yet")
+        if self.device.type == "cuda":
+            store = self._val_resident_store(val_dataset, tuple(size))
+            if store is not None:
+                fn = self._val_fused_fn(name, store["shape"], store["n"])
+                out = fn(state, store["images"], store["labels"])
+                return out.cpu().numpy().astype(np.float64) / store["n"]
+        return val2d.evaluate(val_dataset, self.predict_fn(name, state),
+                              self.cfg.num_classes, size)
+
+    def _val_resident_store(self, val_dataset, size):
+        """Upload the (uniform-shape, patch-resolution) val set once; None
+        if the set needs per-volume zoom (then ``val2d.evaluate``)."""
+        key = (id(val_dataset), size)
+        if key not in self._val_store:
+            samples = [val_dataset[i] for i in range(len(val_dataset))]
+            shapes = {tuple(s["image"].shape) for s in samples}
+            if len(shapes) != 1 or next(iter(shapes))[1:] != size:
+                self._val_store[key] = None
+            else:
+                n = len(samples)
+                sv, xv, yv = next(iter(shapes))
+                images = np.stack([s["image"] for s in samples]).reshape(
+                    n * sv, xv, yv).astype(np.float32)
+                labels = np.stack([np.asarray(s["label"])
+                                   for s in samples]).astype(np.uint8)
+                self._val_store[key] = {
+                    "dataset": val_dataset,
+                    "images": torch.from_numpy(images).to(self.device),
+                    "labels": torch.from_numpy(labels).to(self.device),
+                    "n": n, "shape": (sv, xv, yv)}
+        return self._val_store[key]
+
+    def _val_fused_fn(self, name: str, vol_shape, n: int):
+        """forward + argmax + per-class EDT Dice/HD95 on the device; the
+        returned function gives the SUMMED (classes-1, 2) table (divide by
+        n on the host)."""
+        classes = self.cfg.num_classes
+
+        def run(state, images, labels):
+            pred = val2d.predict_slices(self.predict_fn(name, state), images)
+            pred = pred.reshape((n,) + tuple(vol_shape))
+            return edt.val_metrics(pred, labels, classes).sum(dim=0)
+        return run
+
+
+# ---------------------------------------------------------------------------
+# The full training loop (reference ``train()`` parity)
+# ---------------------------------------------------------------------------
+
+def build_2d_data(cfg: TrainConfig, supervised_only: bool):
+    """Datasets + sampler per the reference recipe, for the device-store
+    path (no host transform: augmentation runs in the step). JAX:
+    ``build_2d_data(..., raw=True)``."""
+    rng = np.random.default_rng(cfg.seed)
+    if supervised_only:
+        train_ds = SliceDataset(cfg.root_path, "train",
+                                num=cfg.labeled_slices)
+        sampler = ShuffleBatchSampler(len(train_ds), cfg.batch_size, rng)
+    else:
+        train_ds = SliceDataset(cfg.root_path, "train")
+        labeled = list(range(cfg.labeled_slices))
+        unlabeled = list(range(cfg.labeled_slices, len(train_ds)))
+        sampler = TwoStreamBatchSampler(labeled, unlabeled, cfg.batch_size,
+                                        cfg.batch_size - cfg.labeled_bs, rng)
+    val_ds = SliceDataset(cfg.root_path, "val")
+    return train_ds, sampler, val_ds
+
+
+def _check_ported(cfg: TrainConfig, method: Method):
+    """``fit`` raises for what this port does not run yet, rather than
+    running something else."""
+    if cfg.dim != 2:
+        raise NotImplementedError("dim=3: the 3D path is not ported yet")
+    if method.transform != "default":
+        raise NotImplementedError(
+            f"method {cfg.method!r} needs the {method.transform!r} "
+            "augmentation, which is not ported yet")
+    if not cfg.device_data:
+        raise NotImplementedError("device_data=False: the host data "
+                                  "pipeline is not ported yet")
+    if cfg.profile_dir:
+        raise NotImplementedError("profile_dir: the step-window profiler "
+                                  "is not ported yet")
+
+
+def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
+        max_steps: Optional[int] = None, data=None,
+        device="cuda") -> dict:
+    """Train per the reference protocol: validation every ``val_every``
+    iterations, best checkpoint on mean Dice, periodic full-state
+    checkpoints, resume from the newest full-state checkpoint.
+
+    ``data`` is the (train_ds, sampler, val_ds) triple of
+    :func:`build_2d_data`; None builds it from ``cfg.root_path``. The engine
+    defaults to ``Engine(cfg, device=device)``.
+
+    One difference from the JAX loop: a resumed run skips the first
+    ``step`` batches of the index stream, so it sees the batches the
+    uninterrupted run would have and ends bit-equal to it."""
+    engine = engine or Engine(cfg, device=device)
+    _check_ported(cfg, engine.method)
+    snapshot = cfg.snapshot_path()
+    logger = setup_logging(snapshot)
+    writer = MetricsWriter(os.path.join(snapshot, "log"))
+    if not cfg.deterministic:
+        # the reference's --deterministic 0 trades reproducibility away;
+        # here that is an entropy-drawn seed for the RNG and the sampling
+        entropy_seed = int.from_bytes(os.urandom(4), "little")
+        cfg = dataclasses.replace(cfg, seed=entropy_seed)
+        logger.info("--deterministic 0: entropy seed %d", entropy_seed)
+    logger.info("config: %s", cfg)
+
+    train_ds, sampler, val_ds = data or build_2d_data(
+        cfg, engine.method.supervised_only)
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
+    engine.attach_store(DeviceSliceStore(train_ds, cfg.patch_size,
+                                         device=engine.device))
+    index_stream = sampler.epochs()
+    logger.info("device-resident dataset: %d samples on %s", len(train_ds),
+                engine.device)
+    state = engine.init_state(seed=cfg.seed)
+
+    # resume if a full-state checkpoint exists (with best_dice, so the
+    # best-checkpoint contract survives restarts)
+    best_dice = {n: 0.0 for n in engine.method.eval_model_names()}
+    tree, start_it, meta = ckpt.restore_latest(snapshot)
+    if tree is not None:
+        state = ckpt.load_state_tree(state, tree)
+        best_dice.update(meta.get("best_dice", {}))
+        for _ in range(state.step):
+            next(index_stream)
+        logger.info("resumed from iteration %d (best_dice %s)", start_it,
+                    best_dice)
+
+    max_iterations = max_steps or cfg.max_iterations
+    saver = ckpt.AsyncWriter()
+    t0 = time.time()
+    images_seen = 0
+    val_seconds = []
+    it = state.step
+    try:
+        while it < max_iterations:
+            # K steps per call, never across a log, val or ckpt boundary
+            n = min(cfg.scan_steps, cfg.log_every - it % cfg.log_every,
+                    cfg.val_every - it % cfg.val_every,
+                    cfg.ckpt_every - it % cfg.ckpt_every,
+                    max_iterations - it)
+            state, metrics = engine.train_steps(
+                state, [next(index_stream) for _ in range(n)])
+            it += n
+            images_seen += n * cfg.batch_size
+
+            if it % cfg.log_every == 0 or it == 1:
+                host = {k: float(v) for k, v in metrics.items()}
+                writer.add_scalars({f"info/{k}": v for k, v in host.items()},
+                                   it)
+                logger.info("iteration %d : %s", it, " ".join(
+                    f"{k}={v:.4f}" for k, v in sorted(host.items())))
+
+            if it % cfg.val_every == 0:
+                for name in engine.method.eval_model_names():
+                    tv = time.perf_counter()
+                    perf = engine.validate(state, val_ds, name)
+                    val_seconds.append(time.perf_counter() - tv)
+                    mean_dice = float(perf[:, 0].mean())
+                    mean_hd95 = float(perf[:, 1].mean())
+                    writer.add_scalar(f"info/{name}_val_mean_dice",
+                                      mean_dice, it)
+                    writer.add_scalar(f"info/{name}_val_mean_hd95",
+                                      mean_hd95, it)
+                    logger.info("iteration %d : %s mean_dice %.4f "
+                                "mean_hd95 %.4f", it, name, mean_dice,
+                                mean_hd95)
+                    if mean_dice > best_dice[name]:
+                        best_dice[name] = mean_dice
+                        snap = ckpt.device_snapshot(
+                            state.models[name].state_dict())
+                        # reference naming: iter_{k}_dice_{d} +
+                        # {model}_best_model (dual-model runs prefix the
+                        # slot name)
+                        prefix = "" if name == "model" else f"{name}_"
+                        dice_path = os.path.join(
+                            snapshot,
+                            f"{prefix}iter_{it}_dice_{mean_dice:.4f}.ckpt")
+                        best_name = (f"{cfg.model}_best_model.ckpt"
+                                     if name == "model"
+                                     else f"{cfg.model}_best_{name}.ckpt")
+                        best_path = os.path.join(snapshot, best_name)
+
+                        def _save_best(s=snap, a=dice_path, b=best_path):
+                            host_sd = ckpt.to_host(s)
+                            ckpt.save_weights(a, host_sd)
+                            ckpt.save_weights(b, host_sd)
+                        saver.submit(_save_best)
+
+            if it % cfg.ckpt_every == 0:
+                snap = ckpt.device_snapshot(ckpt.state_tree(state))
+                eval_names = list(engine.method.eval_model_names())
+                teacher_names = list(engine.method.teacher_names)
+                meta = {"best_dice": dict(best_dice)}
+
+                def _save_state(s=snap, k=it, m=meta):
+                    host = ckpt.to_host(s)
+                    ckpt.save_train_state(snapshot, host, k, meta=m)
+                    # the reference's weights files beside the full state
+                    # (train_mean_teacher_2D.py:295-304): each student, and
+                    # each EMA teacher as ema_model_iter_{k}
+                    for name in eval_names:
+                        prefix = "" if name == "model" else f"{name}_"
+                        ckpt.save_weights(
+                            os.path.join(snapshot, f"{prefix}iter_{k}.ckpt"),
+                            host["models"][name])
+                    for name in teacher_names:
+                        prefix = "" if name == "model" else f"{name}_"
+                        ckpt.save_weights(
+                            os.path.join(snapshot,
+                                         f"{prefix}ema_model_iter_{k}.ckpt"),
+                            host["teachers"][name])
+                    ckpt.prune_old(snapshot)
+                saver.submit(_save_state)
+    except BaseException:
+        # a failed step or validation must not strand queued checkpoint
+        # jobs; drain the writer but never mask the original error
+        try:
+            saver.close()
+        except Exception:
+            logger.exception("async checkpoint writer also failed during "
+                             "abort")
+        writer.close()
+        raise
+
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    elapsed = time.time() - t0
+    throughput = images_seen / elapsed if elapsed > 0 else 0.0
+    saver.close()  # join outstanding checkpoint writes before returning
+    writer.close()
+    logger.info("training finished: %.2f slices/sec, best dice %s",
+                throughput, best_dice)
+    return {"best_dice": best_dice, "iterations": it,
+            "slices_per_sec": throughput, "val_seconds": val_seconds,
+            "state": state}

@@ -25,6 +25,11 @@ def register_method(name: str):
     return deco
 
 
+def available_methods():
+    from cvssl_tpu_torch.train import methods  # noqa: F401 (registers)
+    return sorted(_REGISTRY)
+
+
 def get_method(name: str, cfg):
     if name not in _REGISTRY:
         from cvssl_tpu_torch.train import methods  # noqa: F401 (registers)
@@ -40,6 +45,8 @@ class Method:
     name = "base"
     model_names: Tuple[str, ...] = ("model",)
     teacher_names: Tuple[str, ...] = ()      # models that get an EMA teacher
+    transform: str = "default"               # augmentation of the store
+    supervised_only: bool = False            # labeled-only dataset, no 2-stream
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -63,6 +70,10 @@ class Method:
 
     def init_extra(self):
         return ()
+
+    def eval_model_names(self) -> Tuple[str, ...]:
+        """Models validated (and best-checkpointed) by ``fit``."""
+        return self.model_names
 
     # -- the strategy -----------------------------------------------------
     def loss(self, ctx, batch):

@@ -10,6 +10,8 @@ class Supervised(Method):
     """loss = 0.5*(ce + dice) on the whole batch
     (``train_fully_supervised_2D.py:109-114``)."""
 
+    supervised_only = True
+
     def loss(self, ctx, batch):
         logits = self.primary_logits(ctx.forward("model", batch["image"]))
         ce, dice = self.sup_ce_dice(logits, batch["label"])
