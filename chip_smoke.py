@@ -3,24 +3,32 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card. Builds the kernels from the sources in this checkout
-(Triton cache in ``build/triton``; the CUDA conv kernels with ``nvcc`` into
-``build/kernels``, started in the background first), then runs, in order;
-any failure ends the run with a non-zero exit:
+Needs one CUDA card. Builds the kernels from the CUDA sources in this
+checkout with ``nvcc`` into ``build/kernels`` (one ``nvcc`` per source, all
+started at once in the background), then runs, in order; any failure ends
+the run with a non-zero exit:
 
 1. device: CUDA must be available; prints the card's name and power limit,
    and whether ``h5py`` is installed (the fit phase does not need it);
 2. kernels against their plain version: the fused CE+Dice forward and
-   backward on the card at the main-path shape (12, 4, 256, 256) and a
-   ragged (3, 4, 37, 41), f32 and bf16 logits, cotangents 0.3 / 1.7, held
-   against ``ce_dice_plain`` run on the card in float64; then each kernel's
-   time beside its plain version's and its bound;
+   backward (``csrc/fused_ce_dice.cu``) on the card at the main-path shape
+   (12, 4, 256, 256), a ragged (3, 4, 37, 41), the main shape at an
+   unaligned storage offset, and 2 and 16 classes (3, 2, 37, 41) and
+   (2, 16, 64, 64); f32 and bf16 logits, int32 and uint8 labels,
+   cotangents 0.3 / 1.7, held against ``ce_dice_plain`` run on the card in
+   float64, and each kernel bit-equal across two calls; then each kernel's
+   time beside its plain version's and its bound (also from a clean and a
+   warm L2), the event timer's floor (an empty kernel) and the host's time
+   per call;
 3. the main path at full width: mean-teacher UNet (1,813,764 parameters),
    batch 24 = 12 labeled + 12 unlabeled at 256^2, 4 classes, dtype auto
    (bf16), from a device-resident store of 1312 synthetic ACDC-shaped
    slices; 10 steps from step 0 and 10 from step 1000 with every kernel's
    launch count rising by exactly one per step; then slices/s and peak
-   memory, and a short profile of where the step's device time goes;
+   memory, a short profile of where the step's device time goes, and a
+   ``torch.profiler`` trace of kernel #1 that must count one device kernel
+   per forward and per backward call (no profiler runs before the step
+   loop's throughput: a session slows later launches on the host);
 4. eval forward: ``predict_fn`` on a batch, and the eval-mode forward in
    float32 on the card against the same model on the CPU;
 5. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
@@ -50,6 +58,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -63,6 +72,9 @@ ACDC_LABELED_SLICES = 136
 BATCH, LABELED_BS, PATCH, CLASSES = 24, 12, 256, 4
 MAIN_SHAPE = (LABELED_BS, CLASSES, PATCH, PATCH)
 RAGGED_SHAPE = (3, CLASSES, 37, 41)
+# the 2-class datasets, and the most classes the kernels take
+OTHER_CLASSES = (((3, 2, 37, 41), "float32", "int32"),
+                 ((2, 16, 64, 64), "bfloat16", "uint8"))
 COTANGENTS = (0.3, 1.7)
 FWD_REL_TOL = 1e-5
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -131,6 +143,27 @@ def blob_volumes(n=FIT_VAL_VOLUMES, slices=FIT_VAL_SLICES, seed=10_000):
     return vols
 
 
+def ptxas_summary(log: str):
+    """One line per kernel of ``nvcc -Xptxas -v`` output: its (mangled)
+    name, registers and spill stores."""
+    lines, entry, spill = [], None, "0"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:  # drop the anonymous namespace and the parameter types
+            entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "",
+                           m.group(1))
+            entry = (re.match(r"\w+?I\w+?EE", entry) or [entry])[0]
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            lines.append(f"{entry}: {m.group(1)} registers, {spill} bytes "
+                         "spilled")
+            entry, spill = None, "0"
+    return lines
+
+
 def card_rates(name: str):
     for key, bw, f32 in CARDS:
         if key in name:
@@ -138,16 +171,20 @@ def card_rates(name: str):
     raise SystemExit(f"chip_smoke: no memory/compute rates for {name!r}")
 
 
-def median_ms(fn, flush, reps=50):
+def median_ms(fn, flush, reps=50, before=None):
     """Median device time of ``fn`` over ``reps`` calls, each timed with
     CUDA events after writing ``flush`` (larger than L2), so the inputs
     come from device memory, as the main path finds them; the flush also
     keeps the card busy while the host enqueues ``fn``, so the events time
-    the device work and not the host's launch latency."""
+    the device work and not the host's launch latency. ``before``, if
+    given, runs in place of the write, to time from another L2 state."""
     import torch
     times = []
     for _ in range(reps + 5):
-        flush.zero_()
+        if before is None:
+            flush.zero_()
+        else:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -158,9 +195,33 @@ def median_ms(fn, flush, reps=50):
     return float(np.median(times[5:]))
 
 
+def l2_states(fn, flush):
+    """``fn``'s event time from two more L2 states than the standard
+    timer's (whose 1 GiB write leaves L2 full of dirty lines that the
+    kernel's traffic must write back): after a 1 GiB read (cold and clean)
+    and after a device-side spin that touches no memory (warm: the inputs
+    still in L2 from the call before, as the main path finds the logits
+    that the model has just written)."""
+    import torch
+    return {"clean": median_ms(fn, flush, before=flush.sum),
+            "warm": median_ms(fn, flush,
+                              before=lambda: torch.cuda._sleep(1_000_000))}
+
+
+def offset_view(t):
+    """``t``'s values at a storage offset of one element, 4 (f32) or 2
+    (bf16) bytes off 16-byte alignment: the kernels' scalar loop."""
+    view = t.new_empty(t.numel() + 1)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_kernels(device):
     """Phase 2: forward and backward kernels against the float64 plain
-    version; returns the largest absolute errors seen."""
+    version, on the vector path (main shape) and the scalar loop (ragged
+    shape, and the main shape at an unaligned offset), at 4 classes and at
+    2 and 16; two calls of each kernel on the same inputs must agree bit
+    for bit. Returns the largest absolute errors seen."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
@@ -168,22 +229,32 @@ def check_kernels(device):
     err = {"ce_dice_fwd": 0.0, "ce_dice_bwd": 0.0}
     f32, bf16, i32, u8 = (torch.float32, torch.bfloat16, torch.int32,
                           torch.uint8)
-    cases = [(MAIN_SHAPE, f32, i32), (MAIN_SHAPE, bf16, i32)]
-    cases += [(RAGGED_SHAPE, dt, lt) for dt in (f32, bf16) for lt in (i32, u8)]
-    for shape, dtype, label_dtype in cases:
+    cases = [(MAIN_SHAPE, f32, i32, False), (MAIN_SHAPE, bf16, i32, False)]
+    cases += [(RAGGED_SHAPE, dt, lt, False) for dt in (f32, bf16)
+              for lt in (i32, u8)]
+    cases += [(MAIN_SHAPE, f32, i32, True), (MAIN_SHAPE, bf16, u8, True)]
+    cases += [(shape, getattr(torch, dt), getattr(torch, lt), False)
+              for shape, dt, lt in OTHER_CLASSES]
+    for shape, dtype, label_dtype, offset in cases:
+        c = shape[1]
         logits = (2.0 * torch.randn(shape, generator=gen,
                                     device=device)).to(dtype)
-        labels = torch.randint(0, CLASSES, shape[:1] + shape[2:],
+        labels = torch.randint(0, c, shape[:1] + shape[2:],
                                generator=gen, device=device
                                ).to(label_dtype)
-        x = logits.clone().requires_grad_(True)
-        ce, dice = fcd.fused_ce_dice(x, labels, CLASSES)
+        x = offset_view(logits) if offset else logits.clone()
+        x.requires_grad_(True)
+        tag = (f"{tuple(shape)} {str(dtype)[6:]} {str(label_dtype)[6:]}"
+               f"{' offset' if offset else ''}")
+        geo = fcd._geometry(x, labels)
+        if geo.vector != (shape[2:] != RAGGED_SHAPE[2:] and not offset):
+            raise SystemExit(f"{tag}: vector path {geo.vector}")
+        ce, dice = fcd.fused_ce_dice(x, labels, c)
         (COTANGENTS[0] * ce + COTANGENTS[1] * dice).backward()
         xd = logits.double().requires_grad_(True)
-        ce_r, dice_r = fcd.ce_dice_plain(xd, labels, CLASSES)
+        ce_r, dice_r = fcd.ce_dice_plain(xd, labels, c)
         (COTANGENTS[0] * ce_r + COTANGENTS[1] * dice_r).backward()
         torch.cuda.synchronize()
-        tag = f"{tuple(shape)} {str(dtype)[6:]} {str(label_dtype)[6:]}"
         for got, want in ((ce, ce_r), (dice, dice_r)):
             got, want = float(got.detach()), float(want.detach())
             rel = abs(got - want) / abs(want)
@@ -203,14 +274,84 @@ def check_kernels(device):
             raise SystemExit(
                 f"backward mismatch {tag}: {int(bad.sum())} elements,"
                 f" max abs err {float((g - gr).abs().max())}")
+        # determinism: the same inputs give the same bits, call after call
+        xs = x.detach()
+        g_ce, g_dice = (torch.tensor(v, device=device) for v in COTANGENTS)
+        outs = [fcd._forward_cuda(xs, labels) for _ in range(2)]
+        stats = outs[0][2]
+        grads = [fcd._backward_cuda(xs, labels, stats, g_ce, g_dice)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(*outs))
+                and torch.equal(grads[0], grads[1])):
+            raise SystemExit(f"{tag}: two calls on the same inputs differ")
         print(f"kernel check {tag}: ce {float(ce.detach()):.6f} "
-              f"dice {float(dice.detach()):.6f} ok")
+              f"dice {float(dice.detach()):.6f} ok (vector path "
+              f"{geo.vector}, tail {geo.tail}; bit-equal on repeat)")
     return err
 
 
-def time_kernels(device, mem_bw, f32_rate):
-    """Phase 2 timings at the main-path shape in the main path's dtype
-    (bf16 logits, int32 labels): kernel, plain version, bound."""
+def host_us(fn, calls=200):
+    """Host microseconds to enqueue one call of ``fn`` (no synchronise
+    inside the window; the device drains the queue after it)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def trace_launches(calls, flush, reps=20):
+    """For each named call: the device kernels that one call launches (a
+    ``torch.profiler`` window around that call alone; the most over three
+    windows, since the profiler now and then drops a short kernel's
+    record, which can only lower a count), and each kernel's mean device
+    time over ``reps`` calls with the L2 flushed before each.
+    Returns {name: {"kernels": count, "us": {kernel: us}}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def device_events(prof):
+        return [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == cuda]
+
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        own = {}
+        for _ in range(3):
+            with profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            seen = {e.key: e.count for e in device_events(prof)}
+            if sum(seen.values()) > sum(own.values()):
+                own = seen
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = {e.key: e.self_device_time_total / e.count
+              for e in device_events(prof) if e.key in own}
+        out[name] = {"kernels": sum(own.values()), "us": us}
+        print(f"trace {name}: {out[name]['kernels']} device kernel(s) in "
+              f"one call; device us per launch (L2 flushed) "
+              + ", ".join(f"{k[:60]} {v:.3f}" for k, v in us.items()))
+    return out
+
+
+def kernel_calls(device):
+    """Kernel #1 at the main-path shape in the main path's dtype (bf16
+    logits, int32 labels): its forward and backward launches, the empty
+    kernel, and a 1 GiB flush buffer, larger than L2 (50 MB), whose ~0.3 ms
+    write outlasts the host's enqueueing of any call timed here."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
@@ -219,19 +360,58 @@ def time_kernels(device, mem_bw, f32_rate):
         torch.bfloat16)
     labels = torch.randint(0, CLASSES, MAIN_SHAPE[:1] + MAIN_SHAPE[2:],
                            generator=gen, device=device, dtype=torch.int32)
-    n = labels.numel()
-    c = CLASSES
-    # 1 GiB: far larger than L2 (50 MB), and its ~0.3 ms write outlasts the
-    # host's enqueueing of any call timed here
     flush = torch.empty(2 ** 28, dtype=torch.int32, device=device)
     _, _, stats = fcd._forward_cuda(logits, labels)
     g_ce, g_dice = (torch.tensor(v, device=device) for v in COTANGENTS)
+    lib = fcd._library()
+    return {
+        "logits": logits, "labels": labels, "flush": flush,
+        "fwd": lambda: fcd._forward_cuda(logits, labels),
+        "bwd": lambda: fcd._backward_cuda(logits, labels, stats, g_ce,
+                                          g_dice),
+        "noop": lambda: lib.ce_dice_noop_launch(
+            torch.cuda.current_stream().cuda_stream)}
 
-    def fwd():
-        fcd._forward_cuda(logits, labels)
 
-    def bwd():
-        fcd._backward_cuda(logits, labels, stats, g_ce, g_dice)
+def trace_kernels(device):
+    """Kernel #1 under ``torch.profiler``: one device kernel per forward and
+    per backward call, and the device time of each launch, also at one
+    block of sites (the launches' fixed cost) beside the empty kernel's.
+    Run after the step loop's throughput is measured, as the step's
+    profile is: a profiler session leaves hooks behind that slow every
+    later launch on the host."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+
+    k = kernel_calls(device)
+    one = (k["logits"][:1, :, :16, :16].contiguous(),
+           k["labels"][:1, :16, :16].contiguous())
+    _, _, one_stats = fcd._forward_cuda(*one)
+    g_ce, g_dice = (torch.tensor(v, device=device) for v in COTANGENTS)
+    trace = trace_launches({
+        "ce_dice_fwd": k["fwd"], "ce_dice_bwd": k["bwd"],
+        "empty kernel": k["noop"],
+        "ce_dice_fwd one block": lambda: fcd._forward_cuda(*one),
+        "ce_dice_bwd one block": lambda: fcd._backward_cuda(
+            *one, one_stats, g_ce, g_dice)}, k["flush"])
+    for name, t in trace.items():
+        if t["kernels"] != 1:
+            raise SystemExit(f"{name}: {t['kernels']} device kernels in one "
+                             "call, not 1")
+    return trace
+
+
+def time_kernels(device, mem_bw, f32_rate):
+    """Phase 2 timings of kernel #1 (:func:`kernel_calls`): kernel, plain
+    version, bound; the event timer's floor (an empty kernel through
+    ctypes), and the host's enqueue time per call."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+
+    k = kernel_calls(device)
+    logits, labels, flush = k["logits"], k["labels"], k["flush"]
+    n = labels.numel()
+    c = CLASSES
 
     def plain_fwd():
         with torch.no_grad():
@@ -244,6 +424,12 @@ def time_kernels(device, mem_bw, f32_rate):
     def plain_bwd():
         torch.autograd.grad(out, x, retain_graph=True)
 
+    floor_ms = median_ms(k["noop"], flush)
+    floor_l2 = l2_states(k["noop"], flush)
+    print(f"event timer floor (empty kernel through ctypes): {floor_ms:.6f}"
+          f" ms (clean {floor_l2['clean']:.6f}, warm {floor_l2['warm']:.6f})"
+          f"; host {host_us(k['noop']):.2f} us per launch")
+
     in_bytes = logits.numel() * logits.element_size() \
         + labels.numel() * labels.element_size()
     io = {  # bytes each input read once and each output written once
@@ -254,7 +440,8 @@ def time_kernels(device, mem_bw, f32_rate):
     # forward max/sub/exp/sum/div + 3 class sums ~ 10 per class + 4;
     # backward softmax again + gp, the Jacobian and the CE term ~ 16 + 4
     ops = {"ce_dice_fwd": n * (10 * c + 4), "ce_dice_bwd": n * (16 * c + 4)}
-    timed = {"ce_dice_fwd": (fwd, plain_fwd), "ce_dice_bwd": (bwd, plain_bwd)}
+    timed = {"ce_dice_fwd": (k["fwd"], plain_fwd),
+             "ce_dice_bwd": (k["bwd"], plain_bwd)}
     rows = {}
     for name, (kern, plain) in timed.items():
         t_bytes = io[name] / mem_bw * 1e3
@@ -264,11 +451,16 @@ def time_kernels(device, mem_bw, f32_rate):
             "plain_ms": median_ms(plain, flush),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": io[name]}
+            "bytes": io[name], "host_us": host_us(kern),
+            "l2": l2_states(kern, flush)}
         r = rows[name]
         print(f"kernel {name}: kernel_ms {r['ms']:.6f} plain_ms "
               f"{r['plain_ms']:.6f} bound_us {r['bound_ms'] * 1e3:.3f} "
-              f"({r['bound_by']}, {r['bytes']} bytes) library_ms none")
+              f"({r['bound_by']}, {r['bytes']} bytes) library_ms none; "
+              f"above the floor {(r['ms'] - floor_ms) * 1e3:.3f} us; "
+              f"clean L2 {r['l2']['clean']:.6f} ms, warm L2 "
+              f"{r['l2']['warm']:.6f} ms; host {r['host_us']:.2f} us per "
+              "call")
     return rows
 
 
@@ -379,8 +571,9 @@ def profile_steps(engine, state, stream, step_s, steps=3):
           f"busy share {total_us / 1e6 / wall:.3f}; estimated busy share "
           f"without the profiler {total_us / 1e6 / steps / step_s:.3f}")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-    ours = ("_fwd_partials_kernel", "_finish_kernel", "_bwd_kernel")
-    for e in ranked[:15] + [e for e in ranked[15:] if e.key in ours]:
+    ours = ("ce_dice_fwd_kernel", "ce_dice_bwd_kernel")
+    for e in ranked[:15] + [e for e in ranked[15:]
+                            if any(k in e.key for k in ours)]:
         print(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
               f"{e.count // steps:5d}x  {e.key[:90]}")
 
@@ -625,21 +818,33 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    from cvssl_tpu_torch.ops import _cuda_build
     from cvssl_tpu_torch.ops import conv3x3_p8 as cv
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
-    # nvcc runs in the background while the Triton kernels build and run
+    # one nvcc per source, all started at once, in the background
     built = {}
 
-    def build():
+    def build(name, load):
         try:
             t0 = time.perf_counter()
-            cv._library()
-            built["s"] = time.perf_counter() - t0
+            load()
+            built[name] = time.perf_counter() - t0
         except Exception as e:  # re-raised in the main thread below
-            built["error"] = e
-    builder = threading.Thread(target=build)
-    builder.start()
+            built[name] = e
+    builders = {name: threading.Thread(target=build, args=(name, load))
+                for name, load in (("fused_ce_dice", fcd._library),
+                                   ("conv3x3_p8", cv._library))}
+    for t in builders.values():
+        t.start()
+
+    def wait(name):
+        builders[name].join()
+        if isinstance(built[name], Exception):
+            raise built[name]
+        print(f"{name} built in {built[name]:.1f} s (nvcc, in the "
+              f"background); ptxas, per kernel:\n  " + "\n  ".join(
+                  ptxas_summary(_cuda_build.BUILD_LOGS.get(name, ""))))
 
     device = torch.device("cuda")
     smi = subprocess.run(
@@ -653,30 +858,26 @@ def main() -> int:
           f"rates {mem_bw / 1e12} TB/s, {f32_rate / 1e12} TFLOP/s f32; "
           f"h5py installed: {importlib.util.find_spec('h5py') is not None}")
 
+    wait("fused_ce_dice")
     t0 = time.perf_counter()
     err = check_kernels(device)
-    print(f"kernels built and checked in {time.perf_counter() - t0:.1f} s")
+    print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
     timing = time_kernels(device, mem_bw, f32_rate)
     engine, state, store, launches, _ = run_main_path(device, smi)
+    trace_kernels(device)
     check_eval(engine, state, store)
     del engine, state, store
 
-    builder.join()
-    if "error" in built:
-        raise built["error"]
-    log = [ln for ln in cv.BUILD_LOG["log"].splitlines()
-           if "registers" in ln or "spill" in ln]
-    print(f"conv kernels built in {built['s']:.1f} s (nvcc, in the "
-          f"background):\n  " + "\n  ".join(log))
+    wait("conv3x3_p8")
     conv_err = check_conv(device)
     conv_timing = time_conv(device, mem_bw, f32_rate)
     conv_launches = drive_conv(device)
     run_fit(device, smi)
 
-    source = "cvssl_tpu_torch/ops/fused_ce_dice.py"
+    source = "cvssl_tpu_torch/csrc/fused_ce_dice.cu"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",
                 "ce_dice_bwd": "cvssl_tpu/ops/pallas_kernels.py:131"}
-    kernels = [{"name": k, "route": "triton", "source": source,
+    kernels = [{"name": k, "route": "cuda", "source": source,
                 "replaces": replaces[k], "launches": launches[k],
                 "max_abs_err": err[k], "ms": timing[k]["ms"],
                 "plain_ms": timing[k]["plain_ms"],

@@ -19,34 +19,34 @@ from :func:`build_banded_mats`) in float32, float64 staying float64. On a
 CUDA tensor it launches its kernel from ``cvssl_tpu_torch/csrc/
 conv3x3_p8.cu`` or raises. The kernels are built with ``nvcc`` at the first
 launch into ``build/kernels/`` at the repository root, keyed by a hash of
-the source, and loaded through ``ctypes``. The source's header says what
-bounds them on the card and what each design does about it.
+the source, and loaded through ``ctypes`` (``ops/_cuda_build.py``). The
+source's header says what bounds them on the card and what each design
+does about it.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from cvssl_tpu_torch.ops import _cuda_build
+
 P = 8   # pixels per 128-wide packed group
 C = 16  # channels in and out
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "conv3x3_p8.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _VARIANTS = {"conv3x3_p8": 0, "conv3x3_p8_dma": 1, "conv3x3_p8_db": 2}
 
 # launches of each kernel, for a run to show that it went through them
 LAUNCHES = {name: 0 for name in _VARIANTS}
-# nvcc's output (ptxas registers / shared memory / spills) of the last build
-BUILD_LOG = {"log": ""}
-
-_lib = None
+# the C interface of csrc/conv3x3_p8.cu: {function: (restype, argtypes)}
+SIGNATURES = {
+    "conv3x3_p8_launch": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]),
+    "conv3x3_p8_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
 def reset_launches():
@@ -108,46 +108,9 @@ def _check(x: torch.Tensor, k: torch.Tensor, tile_h: int):
         raise ValueError(f"x on {x.device}, k on {k.device}")
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("conv3x3_p8: nvcc not found (CUDA_HOME or PATH)")
-    return found
-
-
 def _library():
     """Build (once per source hash) and load the kernels' shared library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    so = _BUILD_DIR / f"conv3x3_p8-{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG["log"] = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"conv3x3_p8: nvcc failed ({res.returncode})"
-                               f":\n{BUILD_LOG['log']}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.conv3x3_p8_launch.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.conv3x3_p8_launch.restype = ctypes.c_int
-    lib.conv3x3_p8_error_string.argtypes = [ctypes.c_int]
-    lib.conv3x3_p8_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    return _cuda_build.load("conv3x3_p8", SIGNATURES)
 
 
 def _launch_cuda(name: str, x: torch.Tensor, k: torch.Tensor,

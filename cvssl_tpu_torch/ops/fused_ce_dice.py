@@ -1,4 +1,4 @@
-"""Fused softmax cross-entropy + Dice over NCHW logits: Triton kernels for
+"""Fused softmax cross-entropy + Dice over NCHW logits: CUDA kernels for
 Hopper, with their plain PyTorch version beside them.
 
 Replaces the TPU kernel ``cvssl_tpu/ops/pallas_kernels.py::fused_ce_dice_tpu``
@@ -15,51 +15,51 @@ The backward is ``_fused_bwd``'s closed form with separate cotangents on CE
 and Dice: g_ce (p - y) / n + g_dice p (gp - sum_k gp_k p_k), where
 gp = (-2 y + 2 p (2I + s) / (P + L + s)) / (P + L + s) / C.
 
-Bound: bytes. Per site the forward does some 10 C flops on C logits and one
-label, far below the ~20 flop per byte at which the H100's float32 units
-(67 TFLOP/s) would take over from its memory (3.35 TB/s; SXM data sheet,
-700 W). At the main-path shape (12, 4, 256, 256) the forward reads 12.6 MB
-of f32 logits (6.3 MB in bf16) and 3.1 MB of int32 labels: 4.7 us at
-3.35 TB/s (2.8 us in bf16). The backward reads the same and writes the
-gradient in the logits' dtype: 8.5 us (4.7 us in bf16).
-
-What the design does about it: every byte is touched once per pass.
-* Logits are read in place in NCHW: each class plane is contiguous at
-  stride H*W, so a program loads a (C, BLOCK) tile of C coalesced rows; there
-  is no class-major transpose (the TPU's ``pallas_kernels.py:72``). The
-  logits must be NCHW-contiguous, as the UNet's output convolution gives
-  them.
-* The ragged edge is masked in the kernel; no -1 label padding and no
-  padded-site correction of P (those exist only for the TPU's 8192-site
-  grid, ``pallas_kernels.py:76-81,111-114``).
-* Logits (f32/bf16) and labels (int32/uint8) are cast in registers; the
-  f32 contract of ``train/methods/base.py:118-122`` holds inside the kernel
-  without a materialised f32 copy.
-* The reduction is deterministic, with no atomics: stage 1 writes 1 + 3C
-  partials per (batch, tile) program to a scratch buffer, stage 2 (one
-  program) sums that buffer in a fixed order and computes the scalar
-  epilogue too, so the forward is two launches and no torch ops.
-* The backward recomputes the softmax per site from the logits and the 3C
-  saved sums, and writes the gradient in one read and one write.
+On the card both are one launch of a kernel in
+``cvssl_tpu_torch/csrc/fused_ce_dice.cu``, whose header says what bounds
+them (bytes) and what the design does about it: a persistent grid reads
+the logits in place in NCHW with one 16-byte load per class plane, and the
+forward's last block to finish sums the blocks' rows in block order, so
+the result is deterministic. The wrapper decides which sites the vector
+path takes (:func:`_geometry`) and keeps the forward's scratch: an int32
+ticket and the blocks' rows, allocated once per device and stream.
 
 On a CPU tensor :func:`fused_ce_dice` computes :func:`ce_dice_plain`; on a
-CUDA tensor it launches the kernels or raises. Triton is imported, and the
-kernels built, at the first launch; its cache lives in ``build/triton`` at
-the repository root.
+CUDA tensor it launches the kernels or raises. The library is built with
+``nvcc`` at the first launch (``ops/_cuda_build.py``, into
+``build/kernels`` at the repository root) and loaded through ``ctypes``.
 """
 from __future__ import annotations
 
-import os
-from pathlib import Path
+import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
-from cvssl_tpu_torch.ops import losses
+from cvssl_tpu_torch.ops import _cuda_build, losses
 
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "triton"
+THREADS = 256      # threads per block, as in the kernels
+MAX_CLASSES = 16   # the kernels exist for 2 <= C <= 16
 
-# launches of each kernel pair, for a run to show that it went through them
+# launches of each kernel, for a run to show that it went through them
 LAUNCHES = {"ce_dice_fwd": 0, "ce_dice_bwd": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C interface of csrc/fused_ce_dice.cu: {function: (restype, argtypes)}
+SIGNATURES = {
+    "ce_dice_fwd_launch": (_I, [_P, _I, _P, _I, _I, _I, _I, _I, _I, _F,
+                                _P, _P, _P, _I, _P]),
+    "ce_dice_bwd_launch": (_I, [_P, _I, _P, _I, _I, _I, _I, _I, _I, _F,
+                                _P, _P, _P, _P, _I, _P]),
+    "ce_dice_blocks_per_sm": (_I, [_I, _I, _I, _I]),
+    "ce_dice_noop_launch": (_I, [_P]),
+    "ce_dice_error_string": (ctypes.c_char_p, [_I]),
+}
+
+_DEVICES: dict = {}    # device index -> (SMs, largest grid)
+_OCCUPANCY: dict = {}  # (device, bwd, bf16, u8, C) -> blocks per SM
+_SCRATCH: dict = {}    # (device, stream) -> (ticket, rows)
 
 
 def reset_launches():
@@ -75,151 +75,95 @@ def ce_dice_plain(logits: torch.Tensor, labels: torch.Tensor,
             losses.dice_loss(logits, labels, num_classes, softmax=True))
 
 
-# ---------------------------------------------------------------------------
-# Triton kernels. ``tl`` is bound at the first launch (``_kernels``); the
-# ``tl.constexpr`` annotations stay strings until then (PEP 563), which is
-# how Triton reads them.
-# ---------------------------------------------------------------------------
-tl = None
+class Geometry(NamedTuple):
+    """How the kernels walk the sites of each batch item: ``chunks``
+    16-byte chunks of ``vec`` sites per class plane, then ``tail`` sites
+    one by one."""
+    batch: int
+    classes: int
+    sites: int
+    vec: int
+    vector: bool
+    chunks: int
+    tail: int
 
 
-def _softmax_tile(logits_ptr, labels_ptr, HW, C: tl.constexpr,
-                  CP: tl.constexpr, BLOCK: tl.constexpr):
-    """Load one (CP, BLOCK) tile: batch item program_id(0), sites
-    program_id(1)*BLOCK... (NCHW-contiguous logits, contiguous labels).
-    Returns (log p, p, one-hot y, site_ok, cls, cls_ok, offsets into the
-    logits)."""
-    b = tl.program_id(0).to(tl.int64)
-    offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    site_ok = offs < HW
-    cls = tl.arange(0, CP)
-    cls_ok = cls < C
-    lab = tl.load(labels_ptr + b * HW + offs, mask=site_ok,
-                  other=0).to(tl.int32)
-    x_offs = b * C * HW + cls[:, None] * HW + offs[None, :]
-    x = tl.load(logits_ptr + x_offs, mask=cls_ok[:, None] & site_ok[None, :],
-                other=0.0).to(tl.float32)
-    x = tl.where(cls_ok[:, None], x, float("-inf"))
-    xm = x - tl.max(x, axis=0)[None, :]
-    e = tl.exp(xm)
-    s = tl.sum(e, axis=0)
-    p = e / s[None, :]
-    y = ((cls[:, None] == lab[None, :]) & site_ok[None, :]).to(tl.float32)
-    logp = xm - tl.log(s)[None, :]
-    return logp, p, y, site_ok, cls, cls_ok, x_offs
-
-
-def _fwd_partials_kernel(logits_ptr, labels_ptr, part_ptr, HW,
-                         C: tl.constexpr, CP: tl.constexpr,
-                         BLOCK: tl.constexpr):
-    """Stage 1: one program per (batch item, tile of BLOCK sites) writes the
-    row [CE, I_0..I_C-1, P_0..P_C-1, L_0..L_C-1] of its tile's sums."""
-    logp, p, y, site_ok, cls, cls_ok, _ = _softmax_tile(
-        logits_ptr, labels_ptr, HW, C, CP, BLOCK)
-    valid = site_ok.to(tl.float32)
-    ce = -tl.sum(tl.sum(tl.where(y > 0, logp, 0.0), axis=1), axis=0)
-    inter = tl.sum(p * y, axis=1)
-    psq = tl.sum(p * p * valid[None, :], axis=1)
-    cnt = tl.sum(y, axis=1)
-    row = part_ptr + (tl.program_id(0) * tl.num_programs(1)
-                      + tl.program_id(1)) * (1 + 3 * C)
-    tl.store(row, ce)
-    tl.store(row + 1 + cls, inter, mask=cls_ok)
-    tl.store(row + 1 + C + cls, psq, mask=cls_ok)
-    tl.store(row + 1 + 2 * C + cls, cnt, mask=cls_ok)
-
-
-def _finish_kernel(part_ptr, ce_ptr, dice_ptr, stats_ptr, R, n,
-                   C: tl.constexpr, CP: tl.constexpr, RBLOCK: tl.constexpr):
-    """Stage 2, one program: sum the R partial rows in a fixed order, then
-    the epilogue: ce = CE / n, dice = mean_c 1 - (2I + s) / (P + L + s);
-    stats = (I, P, L) for the backward."""
-    cls = tl.arange(0, CP)
-    cls_ok = cls < C
-    acc_ce = tl.zeros((RBLOCK,), tl.float32)
-    acc_i = tl.zeros((RBLOCK, CP), tl.float32)
-    acc_p = tl.zeros((RBLOCK, CP), tl.float32)
-    acc_l = tl.zeros((RBLOCK, CP), tl.float32)
-    for r0 in range(0, R, RBLOCK):
-        rows = r0 + tl.arange(0, RBLOCK)
-        row_ok = rows < R
-        base = part_ptr + rows * (1 + 3 * C)
-        m2 = row_ok[:, None] & cls_ok[None, :]
-        col = base[:, None] + 1 + cls[None, :]
-        acc_ce += tl.load(base, mask=row_ok, other=0.0)
-        acc_i += tl.load(col, mask=m2, other=0.0)
-        acc_p += tl.load(col + C, mask=m2, other=0.0)
-        acc_l += tl.load(col + 2 * C, mask=m2, other=0.0)
-    inter = tl.sum(acc_i, axis=0)
-    psq = tl.sum(acc_p, axis=0)
-    cnt = tl.sum(acc_l, axis=0)
-    dice_c = 1.0 - (2.0 * inter + 1e-5) / (psq + cnt + 1e-5)
-    tl.store(ce_ptr, tl.sum(acc_ce, axis=0) / n)
-    tl.store(dice_ptr, tl.sum(tl.where(cls_ok, dice_c, 0.0), axis=0) / C)
-    tl.store(stats_ptr + cls, inter, mask=cls_ok)
-    tl.store(stats_ptr + C + cls, psq, mask=cls_ok)
-    tl.store(stats_ptr + 2 * C + cls, cnt, mask=cls_ok)
-
-
-def _bwd_kernel(logits_ptr, labels_ptr, stats_ptr, g_ce_ptr, g_dice_ptr,
-                grad_ptr, HW, n, C: tl.constexpr,
-                CP: tl.constexpr, BLOCK: tl.constexpr):
-    """d(g_ce * CE + g_dice * Dice) / d logits for one tile, from the saved
-    per-class I, P, L (``stats``, 3C floats); the gradient has the logits'
-    layout and dtype."""
-    _, p, y, site_ok, cls, cls_ok, x_offs = _softmax_tile(
-        logits_ptr, labels_ptr, HW, C, CP, BLOCK)
-    inter = tl.load(stats_ptr + cls, mask=cls_ok, other=0.0)
-    psq = tl.load(stats_ptr + C + cls, mask=cls_ok, other=0.0)
-    cnt = tl.load(stats_ptr + 2 * C + cls, mask=cls_ok, other=0.0)
-    g_ce = tl.load(g_ce_ptr).to(tl.float32)
-    g_dice = tl.load(g_dice_ptr).to(tl.float32)
-    denom = psq + cnt + 1e-5
-    ratio = (2.0 * inter + 1e-5) / denom
-    gp = (-2.0 * y + 2.0 * p * ratio[:, None]) / denom[:, None]
-    gp = gp / C
-    dz_dice = p * (gp - tl.sum(gp * p, axis=0)[None, :])
-    dz_ce = (p - y) / n
-    grad = g_ce * dz_ce + g_dice * dz_dice
-    tl.store(grad_ptr + x_offs, grad.to(grad_ptr.dtype.element_ty),
-             mask=cls_ok[:, None] & site_ok[None, :])
-
-
-_JIT_NAMES = ("_softmax_tile", "_fwd_partials_kernel", "_finish_kernel",
-              "_bwd_kernel")
-
-
-def _kernels():
-    """Import Triton and wrap the kernels, once per process. The kernels
-    call each other by their global names, so the wrapped functions take
-    those names' places."""
-    global tl
-    if tl is None:
-        os.environ.setdefault("TRITON_CACHE_DIR", str(_BUILD_DIR))
-        import triton
-        import triton.language
-
-        tl = triton.language
-        g = globals()
-        for name in _JIT_NAMES:
-            g[name] = triton.jit(g[name])
-    return _fwd_partials_kernel, _finish_kernel, _bwd_kernel
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << (int(n) - 1).bit_length()
-
-
-def _layout(logits: torch.Tensor):
-    """(B, C, sites, CP, BLOCK, tiles) of NCHW-contiguous logits."""
+def _geometry(logits: torch.Tensor, labels: torch.Tensor) -> Geometry:
+    """The vector path needs every class plane and every item's labels to
+    start on a chunk boundary: logits at a 16-byte address with
+    ``sites % vec == 0``, labels aligned to their chunk (16 bytes, or
+    ``vec`` bytes of uint8). Otherwise every site takes the scalar loop."""
     if not logits.is_contiguous():
         raise ValueError(f"logits strides {logits.stride()} are not "
                          "NCHW-contiguous")
     b, c = logits.shape[:2]
-    hw = logits[0, 0].numel()
-    cp = _next_pow2(c)
-    block = max(128, 4096 // cp)
-    return b, c, hw, cp, block, -(-hw // block)
+    hw = math.prod(logits.shape[2:])
+    vec = 16 // logits.element_size()
+    label_align = min(16, vec * labels.element_size())
+    vector = (hw % vec == 0 and logits.data_ptr() % 16 == 0
+              and labels.data_ptr() % label_align == 0)
+    chunks = hw // vec if vector else 0
+    return Geometry(b, c, hw, vec, vector, chunks, hw - chunks * vec)
+
+
+def _library():
+    return _cuda_build.load("fused_ce_dice", SIGNATURES)
+
+
+def _device(index: int):
+    """(SMs, largest grid) of a Hopper card."""
+    info = _DEVICES.get(index)
+    if info is None:
+        props = torch.cuda.get_device_properties(index)
+        if (props.major, props.minor) != (9, 0):
+            raise RuntimeError("fused CE+Dice: the kernels are built for "
+                               f"sm_90a (Hopper), not {props.name}")
+        sms = props.multi_processor_count
+        info = _DEVICES[index] = (
+            sms, sms * (props.max_threads_per_multi_processor // THREADS))
+    return info
+
+
+def _grid(lib, index: int, bwd: int, bf16: int, u8: int,
+          geo: Geometry) -> int:
+    """Blocks to launch: as many as the card holds at once (blocks per SM
+    from the kernel's occupancy, times the SMs), no more than the work."""
+    key = (index, bwd, bf16, u8, geo.classes)
+    k = _OCCUPANCY.get(key)
+    if k is None:
+        k = lib.ce_dice_blocks_per_sm(bwd, bf16, u8, geo.classes)
+        if k <= 0:
+            raise RuntimeError(f"fused CE+Dice: no occupancy for {key}")
+        _OCCUPANCY[key] = k
+    work = geo.batch * max(geo.chunks, geo.tail)
+    return max(1, min(-(-work // THREADS), k * _device(index)[0]))
+
+
+def _scratch(device: torch.device, stream: int):
+    """The forward's ticket (one int32, zero between launches) and rows
+    (1 + 3C floats per block), allocated once per device and stream so that
+    launches on one stream share them in order."""
+    key = (device.index, stream)
+    s = _SCRATCH.get(key)
+    if s is None:
+        largest = _device(device.index)[1]
+        s = _SCRATCH[key] = (
+            torch.zeros(1, dtype=torch.int32, device=device),
+            torch.empty(largest * (1 + 3 * MAX_CLASSES), dtype=torch.float32,
+                        device=device))
+    return s
+
+
+def _raise_on(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"fused CE+Dice {what}: launch failed: "
+                           f"{lib.ce_dice_error_string(err).decode()}")
+
+
+def _outputs(out: torch.Tensor, c: int):
+    """ce, dice and stats (3, C) as views of the forward's one buffer
+    [ce, dice, I_0.., P_0.., L_0..]."""
+    return out[0], out[1], out[2:].view(3, c)
 
 
 def _check_cuda_inputs(logits: torch.Tensor, labels: torch.Tensor):
@@ -234,34 +178,58 @@ def _check_cuda_inputs(logits: torch.Tensor, labels: torch.Tensor):
                          f"{tuple(logits.shape)} without the class axis")
     if not labels.is_contiguous():
         raise ValueError("labels must be contiguous")
+    if not 2 <= logits.shape[1] <= MAX_CLASSES:
+        raise ValueError(f"{logits.shape[1]} classes: the kernels take 2 to "
+                         f"{MAX_CLASSES}")
     if logits.numel() == 0:
         raise ValueError("empty logits")
+    if logits.numel() >= 2 ** 31:
+        raise ValueError("logits of 2^31 elements or more")
 
 
 def _forward_cuda(logits: torch.Tensor, labels: torch.Tensor):
-    """Both forward kernels; returns (ce, dice, stats (3, C)) on the card."""
-    fwd, finish, _ = _kernels()
-    b, c, hw, cp, block, tiles = _layout(logits)
+    """The forward kernel, one launch: (ce, dice, stats (3, C)), views of
+    one float32 buffer on the card."""
+    geo = _geometry(logits, labels)
     dev = logits.device
-    parts = torch.empty((b * tiles, 1 + 3 * c), dtype=torch.float32,
-                        device=dev)
-    fwd[(b, tiles)](logits, labels, parts, hw, C=c, CP=cp, BLOCK=block,
-                    num_warps=4)
-    ce = torch.empty((), dtype=torch.float32, device=dev)
-    dice = torch.empty((), dtype=torch.float32, device=dev)
-    stats = torch.empty((3, c), dtype=torch.float32, device=dev)
-    finish[(1,)](parts, ce, dice, stats, b * tiles, float(b * hw), C=c,
-                 CP=cp, RBLOCK=64, num_warps=4)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        bf16 = int(logits.dtype == torch.bfloat16)
+        u8 = int(labels.dtype == torch.uint8)
+        grid = _grid(lib, dev.index, 0, bf16, u8, geo)
+        ticket, rows = _scratch(dev, stream)
+        out = torch.empty(2 + 3 * geo.classes, dtype=torch.float32,
+                          device=dev)
+        err = lib.ce_dice_fwd_launch(
+            logits.data_ptr(), bf16, labels.data_ptr(), u8, geo.batch,
+            geo.classes, geo.sites, geo.chunks, geo.tail,
+            float(geo.batch * geo.sites), rows.data_ptr(), ticket.data_ptr(),
+            out.data_ptr(), grid, stream)
+    _raise_on(lib, err, "forward")
     LAUNCHES["ce_dice_fwd"] += 1
-    return ce, dice, stats
+    return _outputs(out, geo.classes)
 
 
 def _backward_cuda(logits, labels, stats, g_ce, g_dice):
-    _, _, bwd = _kernels()
-    b, c, hw, cp, block, tiles = _layout(logits)
-    grad = torch.empty_like(logits)
-    bwd[(b, tiles)](logits, labels, stats, g_ce, g_dice, grad, hw,
-                    float(b * hw), C=c, CP=cp, BLOCK=block, num_warps=4)
+    """The backward kernel, one launch: the gradient in the logits' dtype
+    and layout, from the forward's stats and the two cotangents (float32
+    scalars on the card)."""
+    geo = _geometry(logits, labels)
+    dev = logits.device
+    lib = _library()
+    grad = torch.empty_like(logits, memory_format=torch.contiguous_format)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        bf16 = int(logits.dtype == torch.bfloat16)
+        u8 = int(labels.dtype == torch.uint8)
+        grid = _grid(lib, dev.index, 1, bf16, u8, geo)
+        err = lib.ce_dice_bwd_launch(
+            logits.data_ptr(), bf16, labels.data_ptr(), u8, geo.batch,
+            geo.classes, geo.sites, geo.chunks, geo.tail,
+            float(geo.batch * geo.sites), stats.data_ptr(), g_ce.data_ptr(),
+            g_dice.data_ptr(), grad.data_ptr(), grid, stream)
+    _raise_on(lib, err, "backward")
     LAUNCHES["ce_dice_bwd"] += 1
     return grad
 
@@ -276,15 +244,16 @@ class _FusedCEDice(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_ce, g_dice):
         logits, labels, stats = ctx.saved_tensors
-        return _backward_cuda(logits, labels, stats, g_ce.contiguous(),
-                              g_dice.contiguous()), None
+        return _backward_cuda(logits, labels, stats,
+                              g_ce.float().contiguous(),
+                              g_dice.float().contiguous()), None
 
 
 def fused_ce_dice(logits: torch.Tensor, labels: torch.Tensor,
                   num_classes: int):
     """(ce, dice) for logits (B, C, *spatial) and labels (B, *spatial).
 
-    CPU tensors take :func:`ce_dice_plain`; CUDA tensors take the Triton
+    CPU tensors take :func:`ce_dice_plain`; CUDA tensors take the CUDA
     kernels (forward and backward) or raise. JAX: ``fused_ce_dice``."""
     if logits.ndim < 2 or logits.shape[1] != num_classes:
         raise ValueError(f"logits {tuple(logits.shape)} do not have "

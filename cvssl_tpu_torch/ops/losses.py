@@ -67,7 +67,7 @@ def softmax_mse_loss(input_logits: torch.Tensor, target_logits: torch.Tensor,
 
 def ce_dice(logits: torch.Tensor, labels: torch.Tensor, num_classes: int):
     """(cross_entropy, dice) pair through the fused CE+Dice wrapper
-    (``ops/fused_ce_dice.py``): the Triton kernels on a CUDA tensor, their
+    (``ops/fused_ce_dice.py``): the CUDA kernels on a CUDA tensor, their
     plain version on a CPU tensor. JAX: ``losses.ce_dice``."""
     from cvssl_tpu_torch.ops.fused_ce_dice import fused_ce_dice
     return fused_ce_dice(logits, labels, num_classes)

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from cvssl_tpu.ops import pallas_conv as J
+from cvssl_tpu_torch.ops import _cuda_build
 from cvssl_tpu_torch.ops import conv3x3_p8 as T
 
 NAMES = ["conv3x3_p8", "conv3x3_p8_dma", "conv3x3_p8_db"]
@@ -104,6 +105,6 @@ def test_launch_counts_untouched_on_cpu():
         getattr(T, name)(torch.from_numpy(x), torch.from_numpy(k),
                          tile_h=16)
     assert T.LAUNCHES == {name: 0 for name in NAMES}
-    src = T._SRC.read_text()
+    src = _cuda_build.source("conv3x3_p8").read_text()
     assert "extern \"C\"" in src and "conv3x3_p8_launch" in src
-    assert T._BUILD_DIR.parts[-2:] == ("build", "kernels")
+    assert _cuda_build.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -1,8 +1,14 @@
 """The port's fused CE+Dice (``cvssl_tpu_torch/ops/fused_ce_dice.py``) on
 the CPU: its plain version against the Pallas kernel in interpret mode and
 the stock losses, and its autograd backward against the closed-form
-``_fused_bwd``. The Triton kernels themselves run only on the card
-(``chip_smoke.py`` holds them against the plain version there)."""
+``_fused_bwd``; the CUDA wrapper's launch geometry, input checks and
+autograd wiring, and its ``ctypes`` declarations against the C source. The
+CUDA kernels themselves run only on the card (``chip_smoke.py`` holds them
+against the plain version there)."""
+import ctypes
+import math
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +16,8 @@ import torch
 
 from cvssl_tpu.ops import losses as jlosses
 from cvssl_tpu.ops.pallas_kernels import _fused_bwd, fused_ce_dice_tpu
+from cvssl_tpu_torch.ops import _cuda_build
+from cvssl_tpu_torch.ops import conv3x3_p8
 from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
 SHAPES = [(2, 32, 32, 4), (3, 37, 41, 4), (1, 16, 16, 2)]   # NHWC
@@ -80,12 +88,139 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
         fcd.fused_ce_dice(torch.zeros(1, 3, 4, 4), torch.zeros(1, 4, 4), 4)
 
 
-def test_kernel_layout_takes_nchw_contiguous_logits_only():
-    """The launch geometry the kernels get: (B, C, sites, CP, BLOCK,
-    tiles); any other layout raises."""
-    x = torch.empty(2, 4, 5, 6)
-    assert fcd._layout(x) == (2, 4, 30, 4, 1024, 1)
-    assert fcd._layout(torch.empty(3, 3, 37, 41)) == (3, 3, 1517, 4, 1024, 2)
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 5, 6), (3, 4, 37, 41),
+                                   (12, 4, 256, 256)])
+def test_kernel_layout_takes_nchw_contiguous_logits_only(shape, dtype,
+                                                         offset):
+    """The launch geometry the kernels get: 16-byte chunks of 4 (f32) or 8
+    (bf16) sites; the vector path only where every class plane starts on a
+    16-byte boundary (aligned data_ptr, sites % chunk == 0), else every
+    site on the scalar loop; any other layout than NCHW-contiguous
+    raises."""
+    n = math.prod(shape)
+    buf = torch.empty(n + 1, dtype=dtype)
+    x = (buf[1:] if offset else buf[:n]).view(shape)
+    labels = torch.zeros(shape[:1] + shape[2:], dtype=torch.int32)
+    geo = fcd._geometry(x, labels)
+    hw = shape[2] * shape[3]
+    assert (geo.batch, geo.classes, geo.sites) == (shape[0], 4, hw)
+    assert geo.vec == (4 if dtype == torch.float32 else 8)
+    assert geo.vector == (shape == (12, 4, 256, 256) and not offset)
+    assert geo.tail == (0 if geo.vector else hw)
+    assert geo.chunks * geo.vec + geo.tail == hw
     for other in (x.to(memory_format=torch.channels_last), x.transpose(2, 3)):
         with pytest.raises(ValueError, match="NCHW-contiguous"):
-            fcd._layout(other)
+            fcd._geometry(other, labels)
+
+
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.uint8])
+def test_unaligned_labels_take_the_scalar_loop(label_dtype):
+    x = torch.empty(2, 4, 16, 16, dtype=torch.bfloat16)
+    buf = torch.zeros(2 * 256 + 1, dtype=label_dtype)
+    assert fcd._geometry(x, buf[:-1].view(2, 16, 16)).vector
+    geo = fcd._geometry(x, buf[1:].view(2, 16, 16))
+    assert (geo.vector, geo.chunks, geo.tail) == (False, 0, 256)
+
+
+@pytest.mark.parametrize("bad", ["f16", "int64_labels", "shape", "classes_1",
+                                 "classes_17", "strided_labels"])
+def test_cuda_inputs_checked_before_launch(bad):
+    c = {"classes_1": 1, "classes_17": 17}.get(bad, 4)
+    dtype = torch.float16 if bad == "f16" else torch.float32
+    logits = torch.zeros(2, c, 8, 8, dtype=dtype)
+    labels = torch.zeros(2, 8, 8, dtype=torch.int64 if bad == "int64_labels"
+                         else torch.int32)
+    if bad == "shape":
+        labels = labels[:, :4]
+    if bad == "strided_labels":
+        labels = labels.transpose(1, 2)
+    with pytest.raises((TypeError, ValueError)):
+        fcd._check_cuda_inputs(logits, labels)
+
+
+def test_autograd_function_with_stand_in_launches(monkeypatch):
+    """The card path's autograd wiring on the CPU, the two launches
+    replaced by torch code of the same contract: the forward returns views
+    of one [ce, dice, I, P, L] buffer; the backward gets the saved stats and
+    the two cotangents as float32 scalars."""
+    logits, labels = _inputs((2, 9, 7, 4), seed=3)
+    y = torch.from_numpy(labels)
+    seen = {}
+
+    def forward(lg, lb):
+        ce, dice = fcd.ce_dice_plain(lg, lb, 4)
+        p = torch.softmax(lg, 1)
+        oh = torch.nn.functional.one_hot(lb.long(), 4).permute(0, 3, 1, 2)
+        stats = torch.stack([(p * oh).sum((0, 2, 3)),
+                             (p * p).sum((0, 2, 3)), oh.sum((0, 2, 3))])
+        return fcd._outputs(torch.cat([ce.reshape(1), dice.reshape(1),
+                                       stats.reshape(-1)]), 4)
+
+    def backward(lg, lb, stats, g_ce, g_dice):
+        seen.update(stats=stats, g=(g_ce, g_dice))
+        lg = lg.detach().requires_grad_(True)
+        with torch.enable_grad():
+            ce, dice = fcd.ce_dice_plain(lg, lb, 4)
+            return torch.autograd.grad(g_ce * ce + g_dice * dice, lg)[0]
+
+    monkeypatch.setattr(fcd, "_forward_cuda", forward)
+    monkeypatch.setattr(fcd, "_backward_cuda", backward)
+    x = _nchw(logits).requires_grad_(True)
+    ce, dice = fcd._FusedCEDice.apply(x, y)
+    (0.3 * ce + 1.7 * dice).backward()
+    ref = _nchw(logits).requires_grad_(True)
+    ce_r, dice_r = fcd.ce_dice_plain(ref, y, 4)
+    (0.3 * ce_r + 1.7 * dice_r).backward()
+    assert ([float(v.detach()) for v in (ce, dice)]
+            == [float(v.detach()) for v in (ce_r, dice_r)])
+    torch.testing.assert_close(x.grad, ref.grad)
+    assert seen["stats"].shape == (3, 4)
+    assert float(seen["stats"][2].sum()) == labels.size
+    for g, want in zip(seen["g"], (0.3, 1.7)):
+        assert g.dtype == torch.float32 and g.is_contiguous()
+        assert float(g) == pytest.approx(want)
+
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_interface(src: str):
+    """{function: (restype, argtypes)} as ctypes would need them, parsed
+    from the definitions in the source's ``extern "C"`` block."""
+    block = src[src.index('extern "C" {'):]
+    found = {}
+    for ret, name, params in re.findall(
+            r"^([A-Za-z_][\w ]*?\**)\s*(\w+)\(([^)]*)\)\s*\{", block,
+            re.M):
+        args = []
+        for param in params.split(","):
+            ctype = param.strip().rsplit(None, 1)[0]
+            args.append(ctypes.c_void_p if "*" in ctype
+                        else _C_TYPES[ctype.replace("const ", "")])
+        restype = (ctypes.c_char_p if ret.strip() == "const char*"
+                   else _C_TYPES[ret.strip()])
+        found[name] = (restype, args)
+    return found
+
+
+@pytest.mark.parametrize("module", [fcd, conv3x3_p8],
+                         ids=["fused_ce_dice", "conv3x3_p8"])
+def test_ctypes_declarations_match_the_c_interface(module):
+    """Each C function's argument count and pointer types against the
+    ``argtypes`` the wrapper declares: an undeclared or int-declared
+    pointer would be cut to 32 bits on the card, silently."""
+    name = module.__name__.rsplit(".", 1)[1]
+    want = _c_interface(_cuda_build.source(name).read_text())
+    assert set(want) == set(module.SIGNATURES)
+    for fn, (restype, argtypes) in module.SIGNATURES.items():
+        assert restype is want[fn][0], fn
+        assert list(argtypes) == want[fn][1], fn
+
+
+def test_wrapper_constants_match_the_kernels():
+    src = _cuda_build.source("fused_ce_dice").read_text()
+    assert f"constexpr int THREADS = {fcd.THREADS};" in src
+    cases = sorted(int(c) for c in re.findall(r"CASE\((\d+)\)", src))
+    assert cases == list(range(2, fcd.MAX_CLASSES + 1))
