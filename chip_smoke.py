@@ -33,12 +33,18 @@ the run with a non-zero exit:
    float32 on the card against the same model on the CPU;
 5. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
    three against the plain version run on the card in float64 at
-   (24, 256, 256, 16) f32 and bf16 input (tile_h 32) and at the JAX tests'
-   (2, 32, 32, 16) and (1, 64, 48, 16) f32 (tile_h = H/2), within 1e-5 of
-   the output's largest element; then each one's time beside the plain
-   version's, the bound and ``F.conv2d``'s time (channels-last f32, TF32
-   off); then their own path: each function once at each of those four
-   cases, launch counts from 0;
+   (24, 256, 256, 16) f32 and bf16 input (tile_h 32), at the JAX tests'
+   (2, 32, 32, 16) and (1, 64, 48, 16) f32 (tile_h = H/2), and at a ragged
+   (2, 32, 40, 16) f32 and bf16 (tile_h 16; W % 16 = 8) and (1, 45, 40,
+   16) f32 (tile_h 3: an odd number of odd row tiles), within 1e-5 of
+   the output's largest element, and the tensor-core kernel
+   (``conv3x3_p8_db``) bit-equal across two calls at the full shape; then
+   each one's time (f32 and bf16 input) beside the plain version's, the
+   bound (bytes against operations at the dense TF32 rate, for each input
+   type) and ``F.conv2d``'s time (channels-last f32, TF32 off); then their
+   own path: each function once at each of those cases, launch counts
+   from 0. ``--conv-only`` builds the conv source alone and runs only this
+   phase;
 6. ``fit`` at full width through the port's API: mean-teacher UNet, batch
    24 = 12 + 12, 256^2, 4 classes, dtype auto, on in-memory blob data of
    ACDC's geometry (1312 train slices, 136 labeled; 20 val volumes of
@@ -84,15 +90,23 @@ MEASURE_STEPS = 30
 CONV_CASES = (((24, 256, 256, 16), "float32", 32),
               ((24, 256, 256, 16), "bfloat16", 32),
               ((2, 32, 32, 16), "float32", 16),
-              ((1, 64, 48, 16), "float32", 32))
+              ((1, 64, 48, 16), "float32", 32),
+              # W % 16 = 8: the last 16-pixel strip is half outside
+              ((2, 32, 40, 16), "float32", 16),
+              ((2, 32, 40, 16), "bfloat16", 16),
+              # 15 row tiles of 3 rows: an odd count, and an odd tile_h
+              ((1, 45, 40, 16), "float32", 3))
 CONV_REL_TOL = 1e-5        # of the float64 output's largest element
 FIT_VAL_VOLUMES, FIT_VAL_SLICES = 20, 10
 FIT_STEPS, FIT_RESUME_STEPS, FIT_EVERY = 400, 600, 200
 
-# (memory bytes/s, float32 non-tensor FLOP/s) by card; NVIDIA data sheets,
-# dense rates at the full power limit
-CARDS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100", 3.35e12, 67e12), ("H200", 4.8e12, 67e12))
+# (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
+# card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
+# at the full power limit
+CARDS = (("H100 PCIe", 2.0e12, 51e12, 378e12),
+         ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+         ("H100", 3.35e12, 67e12, 495e12),
+         ("H200", 4.8e12, 67e12, 495e12))
 
 
 class SyntheticACDC:
@@ -165,9 +179,10 @@ def ptxas_summary(log: str):
 
 
 def card_rates(name: str):
-    for key, bw, f32 in CARDS:
+    """(memory bytes/s, f32 FLOP/s, TF32 tensor FLOP/s) of the card."""
+    for key, *rates in CARDS:
         if key in name:
-            return bw, f32
+            return tuple(rates)
     raise SystemExit(f"chip_smoke: no memory/compute rates for {name!r}")
 
 
@@ -637,12 +652,29 @@ def check_conv(device):
             if not e <= CONV_REL_TOL * scale:
                 raise SystemExit(f"{name} {shape} {dtype}: error {e} above "
                                  f"{CONV_REL_TOL} x {scale}")
+    # determinism of the tensor-core kernel: the same bits, call after call
+    shape, _, tile_h = CONV_CASES[0]
+    x = torch.randn(shape, generator=gen, device=device)
+    k = 0.1 * torch.randn((3, 3, 16, 16), generator=gen, device=device)
+    for xin in (x, x.to(torch.bfloat16)):
+        first, second = (cv.conv3x3_p8_db(xin, k, tile_h=tile_h)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise SystemExit(f"conv3x3_p8_db {shape} {xin.dtype}: two calls "
+                             "on the same inputs differ")
+    print(f"conv check conv3x3_p8_db {shape} f32 and bf16 input: bit-equal "
+          "on repeat")
     return err
 
 
-def time_conv(device, mem_bw, f32_rate):
-    """Phase 5b at the full shape (24, 256, 256, 16), f32 input: kernel,
-    plain version (f32), bound, and F.conv2d (channels-last, TF32 off)."""
+def time_conv(device, mem_bw, f32_rate, tf32_rate):
+    """Phase 5b at the full shape (24, 256, 256, 16), f32 and bf16 input:
+    kernel, plain version (f32), bound, and F.conv2d (channels-last, TF32
+    off). The bound is the least time for the work: the larger of its bytes
+    (input read once, output written once) and the conv's operations at the
+    card's dense TF32 tensor-core rate. The same operations as f32 FMAs on
+    the CUDA cores, what bounds a CUDA-core design, are printed beside it."""
     import torch
     import torch.nn.functional as F
     from cvssl_tpu_torch.ops import conv3x3_p8 as cv
@@ -665,28 +697,36 @@ def time_conv(device, mem_bw, f32_rate):
     ops = b * h * w * c * c * 9 * 2
     in_out = {"float32": x.numel() * 4 + k.numel() * 4 + b * h * w * c * 4,
               "bfloat16": x.numel() * 2 + k.numel() * 4 + b * h * w * c * 4}
-    t_ops = ops / f32_rate * 1e3
+    t_ops = ops / tf32_rate * 1e3
+    t_fma = ops / f32_rate * 1e3
+    bound = {}  # dtype -> (ms, what bounds it)
+    for dt, n in in_out.items():
+        t_bytes = n / mem_bw * 1e3
+        bound[dt] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
     library_ms = median_ms(lambda: F.conv2d(xn, wn, padding=1), flush)
     plain_ms = median_ms(lambda: cv.conv3x3_p8_plain(x, k), flush)
     rows = {}
     for name in cv.LAUNCHES:
         fn = getattr(cv, name)
-        t_bytes = in_out["float32"] / mem_bw * 1e3
         rows[name] = {"ms": median_ms(lambda: fn(x, k), flush),
                       "ms_bf16": median_ms(lambda: fn(xb, k), flush),
                       "plain_ms": plain_ms, "library_ms": library_ms,
-                      "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations"}
+                      "bound_ms": bound["float32"][0],
+                      "bound_by": bound["float32"][1],
+                      "bound_ms_bf16": bound["bfloat16"][0]}
         r = rows[name]
         print(f"kernel {name}: kernel_ms {r['ms']:.6f} (bf16 input "
               f"{r['ms_bf16']:.6f}) plain_ms {plain_ms:.6f} library_ms "
               f"{library_ms:.6f} bound_us {r['bound_ms'] * 1e3:.3f} "
-              f"({r['bound_by']}: {ops} flop = {t_ops * 1e3:.3f} us; bytes "
-              f"f32 {in_out['float32']} = "
+              f"({r['bound_by']}), bf16 input "
+              f"{r['bound_ms_bf16'] * 1e3:.3f} ({bound['bfloat16'][1]}): "
+              f"bytes f32 {in_out['float32']} = "
               f"{in_out['float32'] / mem_bw * 1e6:.3f} us, bf16 "
               f"{in_out['bfloat16']} = "
-              f"{in_out['bfloat16'] / mem_bw * 1e6:.3f} us)")
+              f"{in_out['bfloat16'] / mem_bw * 1e6:.3f} us; {ops} flop = "
+              f"{t_ops * 1e3:.3f} us at dense TF32 (as f32 FMAs on the "
+              f"CUDA cores {t_fma * 1e3:.3f} us)")
     print(f"conv: F.conv2d (channels-last f32, TF32 off) vs conv3x3_p8 max "
           f"rel err {lib_err:.2e}")
     return rows
@@ -812,7 +852,15 @@ def run_fit(device, card):
     return results
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--conv-only", action="store_true",
+        help="build only csrc/conv3x3_p8.cu and run phase 5 (check, time "
+        "and drive the conv kernels), then stop without the result line: "
+        "the short first call after a change to the conv kernels")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -832,9 +880,11 @@ def main() -> int:
             built[name] = time.perf_counter() - t0
         except Exception as e:  # re-raised in the main thread below
             built[name] = e
+    sources = [("conv3x3_p8", cv._library)]
+    if not args.conv_only:
+        sources.insert(0, ("fused_ce_dice", fcd._library))
     builders = {name: threading.Thread(target=build, args=(name, load))
-                for name, load in (("fused_ce_dice", fcd._library),
-                                   ("conv3x3_p8", cv._library))}
+                for name, load in sources}
     for t in builders.values():
         t.start()
 
@@ -853,10 +903,20 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
     name = torch.cuda.get_device_name(0)
-    mem_bw, f32_rate = card_rates(name)
+    mem_bw, f32_rate, tf32_rate = card_rates(name)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {name}; "
-          f"rates {mem_bw / 1e12} TB/s, {f32_rate / 1e12} TFLOP/s f32; "
+          f"rates {mem_bw / 1e12} TB/s, {f32_rate / 1e12} TFLOP/s f32, "
+          f"{tf32_rate / 1e12} TFLOP/s TF32 tensor; "
           f"h5py installed: {importlib.util.find_spec('h5py') is not None}")
+
+    if args.conv_only:
+        wait("conv3x3_p8")
+        check_conv(device)
+        time_conv(device, mem_bw, f32_rate, tf32_rate)
+        drive_conv(device)
+        print("chip_smoke --conv-only: the conv kernels passed; no result "
+              "line (the other phases did not run)")
+        return 0
 
     wait("fused_ce_dice")
     t0 = time.perf_counter()
@@ -870,7 +930,7 @@ def main() -> int:
 
     wait("conv3x3_p8")
     conv_err = check_conv(device)
-    conv_timing = time_conv(device, mem_bw, f32_rate)
+    conv_timing = time_conv(device, mem_bw, f32_rate, tf32_rate)
     conv_launches = drive_conv(device)
     run_fit(device, smi)
 

@@ -165,7 +165,12 @@ def conv3x3_p8_dma(x: torch.Tensor, k: torch.Tensor,
 
 def conv3x3_p8_db(x: torch.Tensor, k: torch.Tensor,
                   tile_h: int = 32) -> torch.Tensor:
-    """:func:`conv3x3_p8`; on the card each block walks the row tiles of
-    an 16-column strip with a two-stage cp.async ring (tile t+1 in flight
-    while tile t is computed)."""
+    """:func:`conv3x3_p8`; on the card each block walks two row tiles of a
+    16-column strip with a two-stage cp.async ring (the second tile in
+    flight while the first is computed), and multiplies on the tensor
+    cores: each output row of the strip is an implicit GEMM of
+    ``mma.sync`` m16n8k8 TF32 products with float32 sums, its operands
+    split into TF32 high and low parts (three products for float32 input,
+    two for bfloat16, which TF32 holds exactly). The float32 sums leave it
+    within about 2e-6 of the largest output from float64."""
     return _conv("conv3x3_p8_db", x, k, tile_h)
