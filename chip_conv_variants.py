@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Design experiments for the tensor-core conv kernel, ``conv3x3_p8_db``
-(variant 2 of ``cvssl_tpu_torch/csrc/conv3x3_p8.cu``), on one CUDA card.
+"""Design experiments for the tensor-core conv kernels (variants 0-2 of
+``cvssl_tpu_torch/csrc/conv3x3_p8.cu``) on one CUDA card.
 
-    python3 chip_conv_variants.py [--variants NAME ...] [--mma-rate]
+    python3 chip_conv_variants.py [--kernel NAME] [--variants NAME ...]
+                                  [--mma-rate]
 
 Builds each named variant of the source (the source with a few lines
 replaced: table ``VARIANTS``) with ``nvcc``, all at once, into
 ``build/conv_variants``; prints each one's ptxas registers and spills;
-checks each against the float64 plain version at (24, 256, 256, 16),
-tile_h 32, and times it with ``chip_smoke.py``'s timer (CUDA events, a
-1 GiB write before each call, median of 50) for float32 and bfloat16
-input, in turns: the list, then the list reversed.
+checks the chosen kernel (``--kernel``, default ``conv3x3_p8_db``) of each
+against the float64 plain version at (24, 256, 256, 16), tile_h 32, and
+times it with ``chip_smoke.py``'s timer (CUDA events, a 1 GiB write before
+each call, median of 50) for float32 and bfloat16 input, in turns: the
+list, then the list reversed. Without ``--variants`` it runs the variants
+that the table names for that kernel.
 
 The ``no_*`` variants are skeletons, not convolutions: the kernel without
 its tensor-core products, its input loads or its output stores, to show
 what each part costs; their errors mean nothing. ``--mma-rate`` times a
 kernel of independent ``mma.sync`` m16n8k8 TF32 products and nothing else,
-the rate that bounds the kernel's products.
+the rate that bounds the kernels' products.
 """
 from __future__ import annotations
 
@@ -32,37 +35,112 @@ import chip_smoke as cs
 SHAPE, TILE_H = (24, 256, 256, 16), 32
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "conv_variants")
+# kernel name: its variant index in conv3x3_p8_launch
+KERNELS = {"conv3x3_p8": 0, "conv3x3_p8_dma": 1, "conv3x3_p8_db": 2}
+ALL = tuple(KERNELS)
+DIRECT, DMA, DB = ALL
 STORE = "*reinterpret_cast<float2*>(row + gw * C + 8 * n + 2 * t) ="
 MMA_PTX = ('asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 '
            '{%0, %1, %2, %3}, "')
-# name: (what it changes, [(text in the source, replacement)])
+NO_MMA = (MMA_PTX, 'asm("// %0 %1 %2 %3 "')
+NO_MMA_LIVE = (MMA_PTX, 'asm("{.reg .b32 q; lop3.b32 q, %4, %5, %6, 0x96; '
+               'lop3.b32 q, q, %7, %8, 0x96; lop3.b32 %0, q, %9, %0, 0x96;} '
+               '// %0 %1 %2 %3 "')
+NO_TILE_COPIES = ("issue_tile<T>(x, ring", "if (0) issue_tile<T>(x, ring")
+NO_GLOBAL_LOADS = (
+    "v = __ldg(reinterpret_cast<const V*>(img + (h * W + w) * C));",
+    "v = V{};")
+TILE_COPY = ("  issue_tile<T>(x, ring, b, t0 * th, col0, th, H, W);\n"
+             "  cp_async_commit();\n")
+LAST_WAIT = "    } else {\n      cp_async_wait<0>();\n    }"
+TILE_PASS = ("for (int q = warp; q < groups; q += WARPS) {\n"
+             "      const int o0 = q * R_DB, nr = min(R_DB, th - o0);")
+
+
+def ROWS(n):
+    return "constexpr int R_DB = 2;", f"constexpr int R_DB = {n};"
+
+
+def DTILES(n):
+    return ("constexpr int TILES_DIRECT = 4;",
+            f"constexpr int TILES_DIRECT = {n};")
+
+
+DIRECT_LAUNCH = "conv_direct<T><<<grid, THREADS, 0, stream>>>"
+# name: (what it changes, [(text in the source, replacement)], the kernels
+# it is an experiment on)
 VARIANTS = {
-    "final": ("the source as it is", []),
-    "rows4": ("four output rows per warp (R_DB = 4)", [
-        ("constexpr int R_DB = 2;", "constexpr int R_DB = 4;")]),
+    "final": ("the source as it is", [], ALL),
+    "rows4": ("four output rows per warp (R_DB = 4)", [ROWS(4)], ALL),
+    "rows3": ("three output rows per warp (R_DB = 3)", [ROWS(3)], ALL),
     "lo_rounded": ("lo(x) rounded to TF32 in registers", [
         ("lo[i] = __float_as_uint(f[i] - __uint_as_float(hi[i]));",
-         "lo[i] = tf32_rna(f[i] - __uint_as_float(hi[i]));")]),
+         "lo[i] = tf32_rna(f[i] - __uint_as_float(hi[i]));")], (DB,)),
     "cvt_rna": ("tf32_rna through the cvt.rna.tf32.f32 instruction", [
         ("return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;",
          'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : '
-         '"f"(v));\n  return r;')]),
+         '"f"(v));\n  return r;')], (DB,)),
     "tiles1": ("one row tile per block: the ring idle", [
-        ("constexpr int TILES_DB = 2;", "constexpr int TILES_DB = 1;")]),
+        ("constexpr int TILES_DB = 2;", "constexpr int TILES_DB = 1;")],
+        (DB,)),
     "tiles4": ("four row tiles per block", [
-        ("constexpr int TILES_DB = 2;", "constexpr int TILES_DB = 4;")]),
+        ("constexpr int TILES_DB = 2;", "constexpr int TILES_DB = 4;")],
+        (DB,)),
     "tiles8": ("eight row tiles per block (a whole strip at the main "
                "shape)", [
-        ("constexpr int TILES_DB = 2;", "constexpr int TILES_DB = 8;")]),
-    "no_mma": ("skeleton: the mma.sync replaced by an empty asm", [
-        (MMA_PTX, 'asm("// %0 %1 %2 %3 "')]),
-    "no_loads": ("skeleton: no input tile copies", [
-        ("issue_tile<T, TW>(x, ring", "if (0) issue_tile<T, TW>(x, ring")]),
-    "no_mma_no_loads": ("skeleton: neither", [
-        (MMA_PTX, 'asm("// %0 %1 %2 %3 "'),
-        ("issue_tile<T, TW>(x, ring", "if (0) issue_tile<T, TW>(x, ring")]),
+        ("constexpr int TILES_DB = 2;", "constexpr int TILES_DB = 8;")],
+        (DB,)),
+    "copy_split": ("a one-tile block copies the rows of the warps' first "
+                   "pass in a cp.async group of their own and starts on "
+                   "them while the rest is in flight", [
+        # rows 0 .. first-1 of the halo tile, then the rest, each as the
+        # halo tile of fewer output rows
+        (TILE_COPY,
+         "  const int first = per == 1 ? min(th, WARPS * R_DB) + 2 : th + 2;"
+         "\n  issue_tile<T>(x, ring, b, t0 * th, col0, first - 2, H, W);\n"
+         "  cp_async_commit();\n"
+         "  if (first < th + 2)\n"
+         "    issue_tile<T>(x, ring + first * (TW + 2) * C, b,\n"
+         "                  t0 * th + first, col0, th - first, H, W);\n"
+         "  cp_async_commit();\n"),
+        (LAST_WAIT,
+         "    } else if (first < th + 2) {\n      cp_async_wait<1>();\n"
+         "    } else {\n      cp_async_wait<0>();\n    }"),
+        (TILE_PASS,
+         "for (int q0 = 0; q0 < groups; q0 += WARPS) {\n"
+         "      if (q0 == WARPS && first < th + 2) {\n"
+         "        cp_async_wait<0>();\n        __syncthreads();\n      }\n"
+         "      const int q = q0 + warp;\n"
+         "      if (q >= groups) continue;\n"
+         "      const int o0 = q * R_DB, nr = min(R_DB, th - o0);")],
+        (DMA,)),
+    "no_ahead": ("each global A load issued where it is used, not a step "
+                 "ahead", [("static constexpr bool AHEAD = true;",
+                            "static constexpr bool AHEAD = false;")],
+                 (DIRECT,)),
+    "direct_tiles1": ("one row tile (32 rows) per block", [DTILES(1)],
+                      (DIRECT,)),
+    "direct_tiles2": ("two row tiles (64 rows) per block", [DTILES(2)],
+                      (DIRECT,)),
+    "direct_tiles8": ("eight row tiles (a whole strip) per block",
+                      [DTILES(8)], (DIRECT,)),
+    "carveout": ("a 25% shared-memory carveout hint (the rest L1)", [
+        (DIRECT_LAUNCH,
+         "cudaFuncSetAttribute(conv_direct<T>, "
+         "cudaFuncAttributePreferredSharedMemoryCarveout, 25);\n  "
+         + DIRECT_LAUNCH)], (DIRECT,)),
+    "no_mma": ("skeleton: the mma.sync replaced by an empty asm (ptxas "
+               "then drops the loads whose values only it used)", [NO_MMA],
+               ALL),
+    "no_mma_live": ("skeleton: the mma.sync replaced by three lop3 on its "
+                    "operands, which keeps the A loads and splits alive",
+                    [NO_MMA_LIVE], ALL),
+    "no_loads": ("skeleton: no input tile copies or global A loads",
+                 [NO_TILE_COPIES, NO_GLOBAL_LOADS], ALL),
+    "no_mma_no_loads": ("skeleton: neither",
+                        [NO_MMA, NO_TILE_COPIES, NO_GLOBAL_LOADS], ALL),
     "no_stores": ("skeleton: the output stores under a false condition", [
-        (STORE, "if (acc[r][n][0] == 1.2345e30f) " + STORE)]),
+        (STORE, "if (acc[r][n][0] == 1.2345e30f) " + STORE)], ALL),
 }
 
 MMA_RATE_SRC = r"""
@@ -180,10 +258,15 @@ def mma_rate(torch, tf32_rate):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--variants", nargs="*", default=list(VARIANTS),
-                        choices=list(VARIANTS))
+    parser.add_argument("--kernel", nargs="+", default=[DB], choices=ALL,
+                        help="the kernel(s) to time in each variant")
+    parser.add_argument("--variants", nargs="*", choices=list(VARIANTS),
+                        help="default: every variant that names one of the "
+                        "kernels")
     parser.add_argument("--mma-rate", action="store_true")
     args = parser.parse_args(argv)
+    variants = args.variants or [n for n, v in VARIANTS.items()
+                                 if set(v[2]) & set(args.kernel)]
     import torch
     if not torch.cuda.is_available():
         print("chip_conv_variants: torch.cuda.is_available() is false",
@@ -199,14 +282,15 @@ def main(argv=None) -> int:
     _, _, tf32_rate = cs.card_rates(torch.cuda.get_device_name(0))
     if args.mma_rate:
         mma_rate(torch, tf32_rate)
-    built = build_variants(args.variants)
-    for name in args.variants:
+    built = build_variants(variants)
+    for name in variants:
         lib, log = built[name]
-        state = "; ".join(l for l in cs.ptxas_summary(log)
-                          if "conv_halo_db" in l)
+        state = "; ".join(l for l in cs.ptxas_summary(log) if "conv_" in l)
         print(f"{name} ({VARIANTS[name][0]}): "
               f"{state if lib else 'NOT BUILT: ' + log[-2000:]}")
-    names = [n for n in args.variants if built[n][0] is not None]
+    # (variant, kernel) pairs: a named variant runs on every chosen kernel
+    runs = [(n, kn) for n in variants if built[n][0] is not None
+            for kn in args.kernel if args.variants or kn in VARIANTS[n][2]]
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -218,35 +302,35 @@ def main(argv=None) -> int:
     flush = torch.empty(2 ** 28, dtype=torch.int32, device=dev)
     b, h, w, _ = SHAPE
 
-    def call(lib, xin):
+    def call(lib, kernel, xin):
         out = torch.empty(SHAPE, dtype=torch.float32, device=dev)
         err = lib.conv3x3_p8_launch(
-            2, xin.data_ptr(), int(xin.dtype == torch.bfloat16),
+            KERNELS[kernel], xin.data_ptr(), int(xin.dtype == torch.bfloat16),
             k.data_ptr(), out.data_ptr(), b, h, w, TILE_H,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(lib.conv3x3_p8_error_string(err).decode())
         return out
 
-    times = {n: {dt: [] for dt in inputs} for n in names}
-    errs = {n: {} for n in names}
-    for name in names + names[::-1]:
-        lib = built[name][0]
+    times = {run: {dt: [] for dt in inputs} for run in runs}
+    errs = {run: {} for run in runs}
+    for run in runs + runs[::-1]:
+        lib = built[run[0]][0]
         for dt, xin in inputs.items():
-            got = call(lib, xin)
+            got = call(lib, run[1], xin)
             torch.cuda.synchronize()
-            errs[name][dt] = float((got.double() - want[dt]).abs().max()
-                                   / want[dt].abs().max())
-            times[name][dt].append(cs.median_ms(lambda: call(lib, xin),
-                                                flush))
-    print(f"conv3x3_p8_db variants at {SHAPE}, tile_h {TILE_H}, ms (two "
-          "turns) and max error / max |out| (skeletons: meaningless):")
-    for name in names:
-        print(f"  {name:17s} f32 "
-              + " ".join(f"{t:.6f}" for t in times[name]["f32"])
-              + f" (err {errs[name]['f32']:.2e})  bf16 "
-              + " ".join(f"{t:.6f}" for t in times[name]["bf16"])
-              + f" (err {errs[name]['bf16']:.2e})")
+            errs[run][dt] = float((got.double() - want[dt]).abs().max()
+                                  / want[dt].abs().max())
+            times[run][dt].append(cs.median_ms(
+                lambda: call(lib, run[1], xin), flush))
+    print(f"variants at {SHAPE}, tile_h {TILE_H}, ms (two turns) and max "
+          "error / max |out| (skeletons: meaningless):")
+    for run in runs:
+        print(f"  {run[1]:14s} {run[0]:17s} f32 "
+              + " ".join(f"{t:.6f}" for t in times[run]["f32"])
+              + f" (err {errs[run]['f32']:.2e})  bf16 "
+              + " ".join(f"{t:.6f}" for t in times[run]["bf16"])
+              + f" (err {errs[run]['bf16']:.2e})")
     return 0
 
 

@@ -37,8 +37,8 @@ the run with a non-zero exit:
    (2, 32, 32, 16) and (1, 64, 48, 16) f32 (tile_h = H/2), and at a ragged
    (2, 32, 40, 16) f32 and bf16 (tile_h 16; W % 16 = 8) and (1, 45, 40,
    16) f32 (tile_h 3: an odd number of odd row tiles), within 1e-5 of
-   the output's largest element, and the tensor-core kernel
-   (``conv3x3_p8_db``) bit-equal across two calls at the full shape; then
+   the output's largest element, and each kernel bit-equal across two
+   calls at the full shape, f32 and bf16 input; then
    each one's time (f32 and bf16 input) beside the plain version's, the
    bound (bytes against operations at the dense TF32 rate, for each input
    type) and ``F.conv2d``'s time (channels-last f32, TF32 off); then their
@@ -627,8 +627,9 @@ def check_eval(engine, state, store):
 
 def check_conv(device):
     """Phase 5a: the three conv kernels against the plain version in
-    float64 on the card (bf16 inputs: float64 of the bf16-rounded values);
-    returns the largest absolute error of each kernel."""
+    float64 on the card (bf16 inputs: float64 of the bf16-rounded values),
+    then each one bit-equal across two calls; returns the largest absolute
+    error of each kernel."""
     import torch
     from cvssl_tpu_torch.ops import conv3x3_p8 as cv
 
@@ -652,29 +653,29 @@ def check_conv(device):
             if not e <= CONV_REL_TOL * scale:
                 raise SystemExit(f"{name} {shape} {dtype}: error {e} above "
                                  f"{CONV_REL_TOL} x {scale}")
-    # determinism of the tensor-core kernel: the same bits, call after call
+    # determinism of each kernel: the same bits, call after call
     shape, _, tile_h = CONV_CASES[0]
     x = torch.randn(shape, generator=gen, device=device)
     k = 0.1 * torch.randn((3, 3, 16, 16), generator=gen, device=device)
-    for xin in (x, x.to(torch.bfloat16)):
-        first, second = (cv.conv3x3_p8_db(xin, k, tile_h=tile_h)
-                         for _ in range(2))
-        torch.cuda.synchronize()
-        if not torch.equal(first, second):
-            raise SystemExit(f"conv3x3_p8_db {shape} {xin.dtype}: two calls "
-                             "on the same inputs differ")
-    print(f"conv check conv3x3_p8_db {shape} f32 and bf16 input: bit-equal "
-          "on repeat")
+    for name in cv.LAUNCHES:
+        for xin in (x, x.to(torch.bfloat16)):
+            first, second = (getattr(cv, name)(xin, k, tile_h=tile_h)
+                             for _ in range(2))
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                raise SystemExit(f"{name} {shape} {xin.dtype}: two calls "
+                                 "on the same inputs differ")
+        print(f"conv check {name} {shape} f32 and bf16 input: bit-equal on "
+              "repeat")
     return err
 
 
-def time_conv(device, mem_bw, f32_rate, tf32_rate):
+def time_conv(device, mem_bw, tf32_rate):
     """Phase 5b at the full shape (24, 256, 256, 16), f32 and bf16 input:
     kernel, plain version (f32), bound, and F.conv2d (channels-last, TF32
     off). The bound is the least time for the work: the larger of its bytes
     (input read once, output written once) and the conv's operations at the
-    card's dense TF32 tensor-core rate. The same operations as f32 FMAs on
-    the CUDA cores, what bounds a CUDA-core design, are printed beside it."""
+    card's dense TF32 tensor-core rate."""
     import torch
     import torch.nn.functional as F
     from cvssl_tpu_torch.ops import conv3x3_p8 as cv
@@ -698,7 +699,6 @@ def time_conv(device, mem_bw, f32_rate, tf32_rate):
     in_out = {"float32": x.numel() * 4 + k.numel() * 4 + b * h * w * c * 4,
               "bfloat16": x.numel() * 2 + k.numel() * 4 + b * h * w * c * 4}
     t_ops = ops / tf32_rate * 1e3
-    t_fma = ops / f32_rate * 1e3
     bound = {}  # dtype -> (ms, what bounds it)
     for dt, n in in_out.items():
         t_bytes = n / mem_bw * 1e3
@@ -725,8 +725,7 @@ def time_conv(device, mem_bw, f32_rate, tf32_rate):
               f"{in_out['float32'] / mem_bw * 1e6:.3f} us, bf16 "
               f"{in_out['bfloat16']} = "
               f"{in_out['bfloat16'] / mem_bw * 1e6:.3f} us; {ops} flop = "
-              f"{t_ops * 1e3:.3f} us at dense TF32 (as f32 FMAs on the "
-              f"CUDA cores {t_fma * 1e3:.3f} us)")
+              f"{t_ops * 1e3:.3f} us at dense TF32")
     print(f"conv: F.conv2d (channels-last f32, TF32 off) vs conv3x3_p8 max "
           f"rel err {lib_err:.2e}")
     return rows
@@ -912,7 +911,7 @@ def main(argv=None) -> int:
     if args.conv_only:
         wait("conv3x3_p8")
         check_conv(device)
-        time_conv(device, mem_bw, f32_rate, tf32_rate)
+        time_conv(device, mem_bw, tf32_rate)
         drive_conv(device)
         print("chip_smoke --conv-only: the conv kernels passed; no result "
               "line (the other phases did not run)")
@@ -930,7 +929,7 @@ def main(argv=None) -> int:
 
     wait("conv3x3_p8")
     conv_err = check_conv(device)
-    conv_timing = time_conv(device, mem_bw, f32_rate, tf32_rate)
+    conv_timing = time_conv(device, mem_bw, tf32_rate)
     conv_launches = drive_conv(device)
     run_fit(device, smi)
 

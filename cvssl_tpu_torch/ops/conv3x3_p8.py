@@ -19,9 +19,11 @@ from :func:`build_banded_mats`) in float32, float64 staying float64. On a
 CUDA tensor it launches its kernel from ``cvssl_tpu_torch/csrc/
 conv3x3_p8.cu`` or raises. The kernels are built with ``nvcc`` at the first
 launch into ``build/kernels/`` at the repository root, keyed by a hash of
-the source, and loaded through ``ctypes`` (``ops/_cuda_build.py``). The
-source's header says what bounds them on the card and what each design
-does about it.
+the source, and loaded through ``ctypes`` (``ops/_cuda_build.py``). All
+three multiply on the tensor cores in split TF32 through one inner loop
+and differ in where its input comes from: device memory, one halo tile in
+shared memory, or a ring of two. The source's header says what bounds
+them on the card and what each design does about it.
 """
 from __future__ import annotations
 
@@ -151,26 +153,29 @@ def _conv(name: str, x: torch.Tensor, k: torch.Tensor,
 def conv3x3_p8(x: torch.Tensor, k: torch.Tensor,
                tile_h: int = 32) -> torch.Tensor:
     """SAME 3x3 stride-1 conv, x (B, H, W, 16), k (3, 3, 16, 16) ->
-    float32 (B, H, W, 16). On the card: one pixel per thread, neighbourhood
-    read in place (``tile_h`` is only the JAX contract's H % tile_h)."""
+    float32 (B, H, W, 16). On the card each block computes four row tiles
+    of ``tile_h`` rows (fewer at the bottom of the image) of a 16-column
+    strip on the tensor cores, each warp two output rows at a time as an
+    implicit GEMM of ``mma.sync`` m16n8k8 TF32 products with float32 sums,
+    its operands split into TF32 high and low parts (three products for
+    float32 input, two for bfloat16, which TF32 holds exactly); the warps
+    read their A operands straight from device memory (no shifted views,
+    no shared-memory tile), zero outside the image. The float32 sums leave
+    it within about 2e-6 of the largest output from float64."""
     return _conv("conv3x3_p8", x, k, tile_h)
 
 
 def conv3x3_p8_dma(x: torch.Tensor, k: torch.Tensor,
                    tile_h: int = 32) -> torch.Tensor:
-    """:func:`conv3x3_p8`; on the card each block stages its (tile_h + 2)
-    x 34-pixel halo tile in shared memory once (cp.async)."""
+    """:func:`conv3x3_p8`; on the card each block copies one (tile_h + 2)
+    x 18-pixel halo tile into shared memory once (``cp.async``) and the
+    warps read their A operands from it."""
     return _conv("conv3x3_p8_dma", x, k, tile_h)
 
 
 def conv3x3_p8_db(x: torch.Tensor, k: torch.Tensor,
                   tile_h: int = 32) -> torch.Tensor:
-    """:func:`conv3x3_p8`; on the card each block walks two row tiles of a
-    16-column strip with a two-stage cp.async ring (the second tile in
-    flight while the first is computed), and multiplies on the tensor
-    cores: each output row of the strip is an implicit GEMM of
-    ``mma.sync`` m16n8k8 TF32 products with float32 sums, its operands
-    split into TF32 high and low parts (three products for float32 input,
-    two for bfloat16, which TF32 holds exactly). The float32 sums leave it
-    within about 2e-6 of the largest output from float64."""
+    """:func:`conv3x3_p8_dma`, with two row tiles a block through a
+    two-stage ``cp.async`` ring: the second tile in flight while the first
+    is computed."""
     return _conv("conv3x3_p8_db", x, k, tile_h)

@@ -15,6 +15,8 @@ TPU are accepted and inert here:
 
 ``num_devices`` must be None or 1: the port trains on one card so far.
 ``fused_loss`` must be None or True: the fused CE+Dice kernel is always on.
+``pretrained_ckpt`` must be None: ``fit`` raises for it until the
+checkpoint loaders are ported.
 """
 from __future__ import annotations
 

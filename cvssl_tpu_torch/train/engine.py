@@ -252,6 +252,10 @@ def _check_ported(cfg: TrainConfig, method: Method):
     if cfg.profile_dir:
         raise NotImplementedError("profile_dir: the step-window profiler "
                                   "is not ported yet")
+    if cfg.pretrained_ckpt:
+        raise NotImplementedError(
+            f"pretrained_ckpt={cfg.pretrained_ckpt!r}: loading pretrained "
+            "weights (cnn_checkpoint / swin_checkpoint) is not ported yet")
 
 
 def fit(cfg: TrainConfig, engine: Optional[Engine] = None,

@@ -423,11 +423,13 @@ def test_fit_entropy_seed_when_not_deterministic(trees, tmp_path):
 
 
 @pytest.mark.parametrize("change", ["dim3", "transform", "host_data",
-                                    "profile"])
+                                    "profile", "pretrained"])
 def test_fit_raises_for_what_is_not_ported(trees, tmp_path, change):
     _, troot = trees
     kw = {"dim3": dict(dim=3), "host_data": dict(device_data=False),
-          "profile": dict(profile_dir=str(tmp_path / "prof"))}.get(change, {})
+          "profile": dict(profile_dir=str(tmp_path / "prof")),
+          "pretrained": dict(pretrained_ckpt=str(tmp_path / "missing.pth"))
+          }.get(change, {})
     cfg = _fit_cfg(troot, tmp_path, **kw)
     method = _NarrowMT(cfg)
     if change == "transform":
@@ -455,6 +457,26 @@ def test_cli_has_the_jax_flags():
         k: v for k, v in dataclasses.asdict(
             jcli.config_from_args(jargs)).items()
         if k in {f.name for f in dataclasses.fields(TConfig)}}
+
+
+def test_cli_pretrained_ckpt_raises_before_any_step(trees, tmp_path,
+                                                   monkeypatch):
+    """JAX loads ``--pretrained_ckpt`` (and fails on a missing file); the
+    port has no loader yet, so it raises rather than train from a random
+    init: before any step, with nothing written under the snapshot root."""
+    _, troot = trees
+    steps = []
+    monkeypatch.setattr(TEngine, "train_steps",
+                        lambda self, *a, **k: steps.append(1))
+    with pytest.raises(NotImplementedError, match="pretrained_ckpt"):
+        tcli.main(["--root_path", troot, "--exp", "cli", "--method",
+                   "supervised", "--max_iterations", "2", "--batch_size",
+                   "2", "--labeled_slices", "8", "--patch_size", "32", "32",
+                   "--device", "cpu", "--dtype", "float32",
+                   "--pretrained_ckpt", str(tmp_path / "missing.pth"),
+                   "--snapshot_root", str(tmp_path / "snap")])
+    assert steps == []
+    assert not os.path.exists(tmp_path / "snap")
 
 
 @pytest.mark.parametrize("argv", [["--distributed"], ["--dcn_slices", "2"]])
