@@ -31,7 +31,21 @@ the run with a non-zero exit:
    loop's throughput: a session slows later launches on the host);
 4. eval forward: ``predict_fn`` on a batch, and the eval-mode forward in
    float32 on the card against the same model on the CPU;
-5. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
+5. the other 2D methods at full width on phase 3's store (batch 24 =
+   12 + 12, 256^2, dtype auto): first where the mean-teacher step makes the
+   host wait (``torch.cuda``'s sync debug mode, "warn"); then for each of
+   uamt, ict, deep_co_training, cps, cct and urpc its models' parameter
+   counts (UNet 1,813,764, UNetCCT 3,713,664, UNetURPC 1,821,840), 5 steps
+   from step 0 and 5 from step 1000 with kernel #1 launched 1, 1, 1, 2, 4,
+   4 times a step (forward and backward), finite losses, a live
+   consistency term after step 1000 (for cps: its pseudo-supervision
+   term, recomputed from the other model's argmax), the teachers (uamt,
+   ict) and both models (cps) moved, slices/s and peak memory over 30
+   steps, and a short profile of each method's step (device busy time per
+   step); every method's checked steps run under the sync debug mode
+   "error" if the mean-teacher step made no synchronising call. uamt's
+   output conv is scaled by 8 so that its MC teacher is sure somewhere;
+6. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
    three against the plain version run on the card in float64 at
    (24, 256, 256, 16) f32 and bf16 input (tile_h 32), at the JAX tests'
    (2, 32, 32, 16) and (1, 64, 48, 16) f32 (tile_h = H/2), and at a ragged
@@ -45,7 +59,7 @@ the run with a non-zero exit:
    own path: each function once at each of those cases, launch counts
    from 0. ``--conv-only`` builds the conv source alone and runs only this
    phase;
-6. ``fit`` at full width through the port's API: mean-teacher UNet, batch
+7. ``fit`` at full width through the port's API: mean-teacher UNet, batch
    24 = 12 + 12, 256^2, 4 classes, dtype auto, on in-memory blob data of
    ACDC's geometry (1312 train slices, 136 labeled; 20 val volumes of
    10 x 256^2, so validation runs resident on the card); 400 iterations
@@ -53,8 +67,13 @@ the run with a non-zero exit:
    directory, then a second ``fit`` to 600 that must resume from 400; the
    checkpoint files, the val table, the fused kernel's launches (one per
    iteration), slices/s including validation and checkpoints, the val
-   pass's time and the EDT's peak memory;
-7. one JSON line of the kernels, then the result line
+   pass's time and the EDT's peak memory; then ``fit`` of cps on the same
+   data, 200 iterations with val and checkpoints every 100: the dual-model
+   checkpoint files (``model1_``/``model2_`` prefixes,
+   ``unet_best_model1.ckpt``, no EMA files), two launches of each kernel an
+   iteration;
+8. one JSON line of the kernels (kernel #1's with its launches in each
+   method's run of phase 5), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -99,6 +118,19 @@ CONV_CASES = (((24, 256, 256, 16), "float32", 32),
 CONV_REL_TOL = 1e-5        # of the float64 output's largest element
 FIT_VAL_VOLUMES, FIT_VAL_SLICES = 20, 10
 FIT_STEPS, FIT_RESUME_STEPS, FIT_EVERY = 400, 600, 200
+# the other UNet-family 2D methods: kernel #1's forward (and backward)
+# launches per step of each
+METHOD_LAUNCHES = {"uamt": 1, "ict": 1, "deep_co_training": 1, "cps": 2,
+                   "cct": 4, "urpc": 4}
+METHOD_STEPS = 5               # from step 0, and again from step 1000
+MODEL_PARAMS = {"unet": 1_813_764, "unet_cct": 3_713_664,
+                "unet_urpc": 1_821_840}
+# uamt's output conv (student and teacher) scaled up, so that the MC
+# teacher of a freshly initialised UNet is sure at some sites and the
+# masked consistency term is live (random init alone: every site's entropy
+# is above the threshold)
+UAMT_LOGIT_SCALE = 8.0
+CPS_FIT_STEPS, CPS_FIT_EVERY = 200, 100
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -322,9 +354,10 @@ def host_us(fn, calls=200):
 def trace_launches(calls, flush, reps=20):
     """For each named call: the device kernels that one call launches (a
     ``torch.profiler`` window around that call alone; the most over three
-    windows, since the profiler now and then drops a short kernel's
-    record, which can only lower a count), and each kernel's mean device
-    time over ``reps`` calls with the L2 flushed before each.
+    windows, or up to ten while none has seen a kernel, since the profiler
+    now and then drops a short kernel's record, which can only lower a
+    count), and each kernel's mean device time over ``reps`` calls with
+    the L2 flushed before each.
     Returns {name: {"kernels": count, "us": {kernel: us}}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -341,7 +374,9 @@ def trace_launches(calls, flush, reps=20):
         fn()
         torch.cuda.synchronize()
         own = {}
-        for _ in range(3):
+        for window in range(10):
+            if window >= 3 and own:
+                break
             with profile(activities=acts) as prof:
                 fn()
                 torch.cuda.synchronize()
@@ -483,26 +518,17 @@ def run_main_path(device, card):
     """Phase 3: the mean-teacher train step at full width."""
     import torch
     from cvssl_tpu_torch.data.device_store import DeviceSliceStore
-    from cvssl_tpu_torch.data.sampler import TwoStreamBatchSampler
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
-    from cvssl_tpu_torch.train.config import TrainConfig
     from cvssl_tpu_torch.train.engine import Engine
 
-    cfg = TrainConfig(method="mean_teacher", model="unet",
-                      num_classes=CLASSES, batch_size=BATCH,
-                      labeled_bs=LABELED_BS, patch_size=(PATCH, PATCH),
-                      labeled_slices_override=ACDC_LABELED_SLICES)
+    cfg = method_config("mean_teacher")
     engine = Engine(cfg)
     t0 = time.perf_counter()
     store = DeviceSliceStore(SyntheticACDC(), cfg.patch_size)
     engine.attach_store(store)
     print(f"store: {tuple(store.images.shape)} {store.images.dtype} on "
           f"{store.images.device}, built in {time.perf_counter() - t0:.1f} s")
-    sampler = TwoStreamBatchSampler(
-        list(range(ACDC_LABELED_SLICES)),
-        list(range(ACDC_LABELED_SLICES, ACDC_TRAIN_SLICES)),
-        BATCH, BATCH - LABELED_BS, rng=np.random.default_rng(0))
-    stream = sampler.epochs()
+    stream = two_stream(0).epochs()
     state = engine.init_state()
     model = state.models["model"]
     n_params = sum(p.numel() for p in model.parameters())
@@ -559,11 +585,12 @@ def run_main_path(device, card):
     return engine, state, store, launches, sps
 
 
-def profile_steps(engine, state, stream, step_s, steps=3):
-    """Where the step's device time goes: top kernels by device time over a
-    few steps, and the device's busy share of the wall time with the
+def profile_steps(engine, state, stream, step_s, steps=3, top=15):
+    """Where the step's device time goes: the ``top`` kernels by device time
+    over a few steps, and the device's busy share of the wall time with the
     profiler on. ``step_s``, the wall time of a step without the profiler
-    (another window), gives an estimate of the busy share without it."""
+    (another window), gives an estimate of the busy share without it.
+    Returns the device's busy ms per step (None if none was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -580,17 +607,239 @@ def profile_steps(engine, state, stream, step_s, steps=3):
     total_us = sum(e.self_device_time_total for e in events)
     if total_us <= 0:
         print("profile: no device time recorded")
-        return
+        return None
     print(f"profile: {steps} steps, wall {wall / steps * 1e3:.2f} ms/step "
           f"(profiler on), device busy {total_us / steps / 1e3:.2f} ms/step, "
           f"busy share {total_us / 1e6 / wall:.3f}; estimated busy share "
           f"without the profiler {total_us / 1e6 / steps / step_s:.3f}")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     ours = ("ce_dice_fwd_kernel", "ce_dice_bwd_kernel")
-    for e in ranked[:15] + [e for e in ranked[15:]
-                            if any(k in e.key for k in ours)]:
+    for e in ranked[:top] + [e for e in ranked[top:]
+                             if any(k in e.key for k in ours)]:
         print(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
               f"{e.count // steps:5d}x  {e.key[:90]}")
+    return total_us / steps / 1e3
+
+
+def two_stream(seed):
+    """The step loop's sampler: 12 labeled + 12 unlabeled a batch."""
+    from cvssl_tpu_torch.data.sampler import TwoStreamBatchSampler
+    return TwoStreamBatchSampler(
+        list(range(ACDC_LABELED_SLICES)),
+        list(range(ACDC_LABELED_SLICES, ACDC_TRAIN_SLICES)),
+        BATCH, BATCH - LABELED_BS, rng=np.random.default_rng(seed))
+
+
+def sync_sites(fn):
+    """Where ``fn`` makes the host wait for the card: the port's source
+    line (else the reported one) and the message of each synchronising call
+    that ``torch.cuda``'s sync debug mode reports (mode "warn"), with their
+    counts. The mode is set before the window opens, so the notice that
+    setting it may print is not counted."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "cvssl_tpu_torch" in f.filename]
+        where = (f"{os.path.relpath(ours[-1].filename)}:{ours[-1].lineno}"
+                 if ours else f"{filename}:{lineno}")
+        sites[f"{where}: {str(message)[:80]}"] += 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return dict(sites)
+
+
+def method_config(method, **kw):
+    from cvssl_tpu_torch.train.config import TrainConfig
+    return TrainConfig(method=method, model="unet", num_classes=CLASSES,
+                       batch_size=BATCH, labeled_bs=LABELED_BS,
+                       patch_size=(PATCH, PATCH),
+                       labeled_slices_override=ACDC_LABELED_SLICES, **kw)
+
+
+def run_other_methods(device, card, store):
+    """Phase 5: the other UNet-family 2D methods at full width on the
+    step loop's store. For each: its models' parameter counts; 5 steps from
+    step 0 and 5 from step 1000, kernel #1 launched by the method's count
+    per step, forward and backward; finite losses, a live consistency term
+    after step 1000, teachers (uamt, ict) and both models (cps) moved; then
+    slices/s and peak memory over 30 steps; a short profile of the step.
+    Every method's checked steps run under
+    ``torch.cuda.set_sync_debug_mode("error")`` if the mean-teacher step
+    makes no synchronising call. cps's pseudo-supervision terms are read
+    through ``_pseudo_ce`` in its checked steps and recomputed here."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine
+
+    stream = two_stream(1).epochs()
+    mt = Engine(method_config("mean_teacher"))
+    mt.attach_store(store)
+    mt_state = mt.init_state()
+    mt.train_steps(mt_state, [next(stream)])      # first launches: set-up
+    mt_sites = sync_sites(lambda: mt.train_steps(
+        mt_state, [next(stream) for _ in range(3)]))
+    print(f"sync debug: the mean-teacher step, 3 steps: "
+          f"{mt_sites or 'no synchronising call'}")
+    del mt, mt_state
+
+    strict = not mt_sites
+    results = {}
+    for method, per_step in METHOD_LAUNCHES.items():
+        engine = Engine(method_config(method))
+        engine.attach_store(store)
+        state = engine.init_state()
+        counts = {}
+        for slot, model in state.models.items():
+            n = sum(p.numel() for p in model.parameters())
+            kind = {"cct": "unet_cct", "urpc": "unet_urpc"}.get(method,
+                                                                "unet")
+            if n != MODEL_PARAMS[kind]:
+                raise SystemExit(f"{method} {slot}: {n} parameters, not "
+                                 f"{MODEL_PARAMS[kind]} ({kind})")
+            counts[slot] = n
+        if method == "uamt":
+            for m in (state.models["model"], state.teachers["model"]):
+                with torch.no_grad():
+                    m.decoder.out_conv.weight.mul_(UAMT_LOGIT_SCALE)
+                    m.decoder.out_conv.bias.mul_(UAMT_LOGIT_SCALE)
+        watched = state.teachers or state.models
+        start_params = {n: [p.detach().clone() for p in m.parameters()]
+                        for n, m in watched.items()}
+        pseudo = spy_pseudo_ce(engine.method) if method == "cps" else None
+
+        fcd.reset_launches()
+        vals = []
+        for start in (0, 1000):
+            state.step = start
+            for _ in range(METHOD_STEPS):
+                before = dict(fcd.LAUNCHES)
+                if strict:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, metrics = engine.train_steps(state,
+                                                        [next(stream)])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                for k in before:
+                    if fcd.LAUNCHES[k] != before[k] + per_step:
+                        raise SystemExit(
+                            f"{method} {k}: {before[k]} -> "
+                            f"{fcd.LAUNCHES[k]} in one step, not "
+                            f"+{per_step}")
+                vals.append(metrics)
+        torch.cuda.synchronize()
+        launches = dict(fcd.LAUNCHES)
+        vals = [{k: float(v) for k, v in m.items()} for m in vals]
+        if not all(math.isfinite(x) for v in vals for x in v.values()):
+            raise SystemExit(f"{method}: non-finite metrics {vals}")
+        late = vals[METHOD_STEPS:]
+        cons_key = "consistency_loss"
+        if pseudo is not None:
+            del engine.method._pseudo_ce
+            if len(pseudo) != 4 * METHOD_STEPS:
+                raise SystemExit(f"cps: {len(pseudo)} pseudo-supervision "
+                                 f"terms in {2 * METHOD_STEPS} steps")
+            cons_key = "pseudo_supervision"
+            for i, v in enumerate(late, METHOD_STEPS):
+                v[cons_key] = check_pseudo_ce(pseudo[2 * i:2 * i + 2], v)
+            del pseudo
+        if not all(v[cons_key] > 0.0 for v in late):
+            raise SystemExit(f"{method}: {cons_key} not > 0 after step "
+                             f"1000: {[v[cons_key] for v in late]}")
+        for n, m in watched.items():
+            if all(torch.equal(a, b) for a, b in
+                   zip(start_params[n], m.parameters())):
+                raise SystemExit(f"{method}: {n} did not move")
+
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MEASURE_STEPS // 10):
+            state, metrics = engine.train_steps(
+                state, [next(stream) for _ in range(10)])
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        r = results[method] = {
+            "params": counts, "launches": launches,
+            "slices_per_s": MEASURE_STEPS * BATCH / dt,
+            "ms_per_step": dt / MEASURE_STEPS * 1e3,
+            "peak_gib": peak / 2 ** 30}
+        extra = (f", uncertainty mask {late[-1]['uncertainty_mask_frac']:.4f}"
+                 if method == "uamt" else "")
+        print(f"method {method}: parameters {counts}; "
+              f"{2 * METHOD_STEPS} steps, launches {launches} "
+              f"({per_step} + {per_step} a step"
+              f"{', under sync debug mode error' if strict else ''}); loss "
+              f"{vals[0]['loss']:.4f} -> {vals[METHOD_STEPS - 1]['loss']:.4f}"
+              f" (from 0), {late[0]['loss']:.4f} -> {late[-1]['loss']:.4f} "
+              f"(from 1000), {cons_key} {late[-1][cons_key]:.3e}{extra}; "
+              f"{r['slices_per_s']:.2f} slices/s ({r['ms_per_step']:.2f} "
+              f"ms/step over {MEASURE_STEPS} steps), peak memory "
+              f"{r['peak_gib']:.3f} GiB, on {card}")
+        r["busy_ms_per_step"] = profile_steps(engine, state, stream,
+                                              dt / MEASURE_STEPS, top=5)
+        del engine, state, metrics
+        torch.cuda.empty_cache()
+    return results
+
+
+def spy_pseudo_ce(method):
+    """Record each ``_pseudo_ce`` call of a cps ``method`` (model 1's
+    unlabeled logits with model 2's pseudo-labels, then the reverse) as
+    (logits, pseudo-labels, term), kept on the card; ``del
+    method._pseudo_ce`` ends the recording."""
+    calls = []
+    inner = method._pseudo_ce
+
+    def spy(logits_unl, pseudo):
+        term = inner(logits_unl, pseudo)
+        calls.append((logits_unl.detach(), pseudo, term.detach()))
+        return term
+    method._pseudo_ce = spy
+    return calls
+
+
+def check_pseudo_ce(calls, metrics):
+    """One cps step's two pseudo-supervision calls: each model's
+    pseudo-labels are the argmax of the other model's softmax (all but
+    1e-4 of the sites), and each term is the plain ``F.cross_entropy``
+    against them (rel 1e-4). Returns the weighted pseudo-supervision of
+    both models, the part of the loss that the pseudo-labels make."""
+    import torch
+    import torch.nn.functional as F
+    (l1, p2, ps1), (l2, p1, ps2) = calls
+    total = 0.0
+    for logits, labels, other, term in ((l1, p2, l2, ps1),
+                                        (l2, p1, l1, ps2)):
+        want = torch.argmax(torch.softmax(other.float(), dim=1), dim=1)
+        flips = int((want != labels).sum())
+        if flips > labels.numel() * 1e-4:
+            raise SystemExit(f"cps: {flips} of {labels.numel()} "
+                             "pseudo-labels are not the other model's argmax")
+        ce = float(F.cross_entropy(logits.float(), labels))
+        if not math.isclose(float(term), ce, rel_tol=1e-4):
+            raise SystemExit(f"cps: pseudo-supervision {float(term)} is not "
+                             f"the cross entropy {ce}")
+        total += metrics["consistency_weight"] * ce
+    return total
 
 
 def check_eval(engine, state, store):
@@ -626,7 +875,7 @@ def check_eval(engine, state, store):
 
 
 def check_conv(device):
-    """Phase 5a: the three conv kernels against the plain version in
+    """Phase 6a: the three conv kernels against the plain version in
     float64 on the card (bf16 inputs: float64 of the bf16-rounded values),
     then each one bit-equal across two calls; returns the largest absolute
     error of each kernel."""
@@ -671,7 +920,7 @@ def check_conv(device):
 
 
 def time_conv(device, mem_bw, tf32_rate):
-    """Phase 5b at the full shape (24, 256, 256, 16), f32 and bf16 input:
+    """Phase 6b at the full shape (24, 256, 256, 16), f32 and bf16 input:
     kernel, plain version (f32), bound, and F.conv2d (channels-last, TF32
     off). The bound is the least time for the work: the larger of its bytes
     (input read once, output written once) and the conv's operations at the
@@ -732,7 +981,7 @@ def time_conv(device, mem_bw, tf32_rate):
 
 
 def drive_conv(device):
-    """Phase 5c, the conv kernels' own path: each public function once at
+    """Phase 6c, the conv kernels' own path: each public function once at
     each case, as the JAX package uses them (its tests' shapes and the
     docstring's timing shape), launch counts from 0."""
     import torch
@@ -756,12 +1005,11 @@ def drive_conv(device):
 
 
 def run_fit(device, card):
-    """Phase 6: fit, its files, the val table, resume, throughput."""
+    """Phase 7: fit, its files, the val table, resume, throughput; then
+    the cps fit (:func:`run_cps_fit`)."""
     import torch
-    from cvssl_tpu_torch.data.sampler import TwoStreamBatchSampler
     from cvssl_tpu_torch.ops import edt
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
-    from cvssl_tpu_torch.train.config import TrainConfig
     from cvssl_tpu_torch.train.engine import Engine, fit
 
     t0 = time.perf_counter()
@@ -770,27 +1018,18 @@ def run_fit(device, card):
           f"volumes of {val_ds[0]['image'].shape}, made in "
           f"{time.perf_counter() - t0:.1f} s")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
-    cfg = TrainConfig(method="mean_teacher", model="unet",
-                      num_classes=CLASSES, batch_size=BATCH,
-                      labeled_bs=LABELED_BS, patch_size=(PATCH, PATCH),
-                      labeled_slices_override=ACDC_LABELED_SLICES,
-                      val_every=FIT_EVERY, ckpt_every=FIT_EVERY,
-                      log_every=100, snapshot_root=tmp, exp="ACDC/smoke")
+    cfg = method_config("mean_teacher", val_every=FIT_EVERY,
+                        ckpt_every=FIT_EVERY, log_every=100,
+                        snapshot_root=tmp, exp="ACDC/smoke")
     snap = cfg.snapshot_path()
-
-    def sampler():  # a fresh stream per fit call, as a restarted run has
-        return TwoStreamBatchSampler(
-            list(range(ACDC_LABELED_SLICES)),
-            list(range(ACDC_LABELED_SLICES, ACDC_TRAIN_SLICES)),
-            BATCH, BATCH - LABELED_BS, rng=np.random.default_rng(cfg.seed))
-
     results = []
     for steps in (FIT_STEPS, FIT_RESUME_STEPS):
         engine = Engine(cfg)
         fcd.reset_launches()
         t0 = time.perf_counter()
+        # a fresh stream per fit call, as a restarted run has
         res = fit(cfg, engine=engine, max_steps=steps,
-                  data=(train_ds, sampler(), val_ds))
+                  data=(train_ds, two_stream(cfg.seed), val_ds))
         wall = time.perf_counter() - t0
         launches = dict(fcd.LAUNCHES)
         ran = steps - (results[-1]["iterations"] if results else 0)
@@ -848,7 +1087,52 @@ def run_fit(device, card):
     print(f"fit val table (dice, hd95) per class: {table.tolist()}; val "
           f"pass {val_s:.3f} s; EDT metrics alone {edt_s:.3f} s, peak "
           f"{peak / 2 ** 20:.1f} MiB above its inputs, on {card}")
-    return results
+    del engine, results, state
+    run_cps_fit(card, train_ds, val_ds)
+
+
+def run_cps_fit(card, train_ds, val_ds):
+    """Phase 7b: ``fit`` of cps (two UNets, two optimizers) on the same
+    data, 200 iterations with val and checkpoints every 100: the dual-model
+    files (JAX ``engine.py:693-707``), kernel #1's launches (two forward
+    and two backward an iteration), slices/s."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, fit
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cps_")
+    cfg = method_config("cps", val_every=CPS_FIT_EVERY,
+                        ckpt_every=CPS_FIT_EVERY, log_every=100,
+                        snapshot_root=tmp, exp="ACDC/smoke_cps")
+    snap = cfg.snapshot_path()
+    fcd.reset_launches()
+    res = fit(cfg, engine=Engine(cfg), max_steps=CPS_FIT_STEPS,
+              data=(train_ds, two_stream(cfg.seed), val_ds))
+    torch.cuda.synchronize()
+    launches = dict(fcd.LAUNCHES)
+    if res["iterations"] != CPS_FIT_STEPS:
+        raise SystemExit(f"cps fit stopped at {res['iterations']}")
+    if any(v != 2 * CPS_FIT_STEPS for v in launches.values()):
+        raise SystemExit(f"cps fit: launches {launches} in "
+                         f"{CPS_FIT_STEPS} iterations")
+    files = sorted(os.listdir(snap))
+    want = ["unet_best_model1.ckpt", "unet_best_model2.ckpt",
+            "model_iter_100.ckpt", "model_iter_200.ckpt"]
+    want += [f"model{i}_iter_{k}.ckpt" for i in (1, 2) for k in (100, 200)]
+    for name in want:
+        if name not in files:
+            raise SystemExit(f"cps fit: no {name} in {files}")
+    for slot in ("model1", "model2"):
+        if not glob.glob(os.path.join(snap, f"{slot}_iter_*_dice_*.ckpt")):
+            raise SystemExit(f"cps fit: no {slot}_iter_*_dice_* file")
+    if any("ema" in f for f in files) or any(f.startswith("iter_")
+                                             for f in files):
+        raise SystemExit(f"cps fit: single-model or EMA files {files}")
+    print(f"cps fit to {CPS_FIT_STEPS}: {res['slices_per_sec']:.2f} slices/s"
+          f" including validation and checkpoints, val passes "
+          f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
+          f"{launches}, best dice {res['best_dice']}, on {card}")
+    print(f"cps fit files: {files}")
 
 
 def main(argv=None) -> int:
@@ -856,7 +1140,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--conv-only", action="store_true",
-        help="build only csrc/conv3x3_p8.cu and run phase 5 (check, time "
+        help="build only csrc/conv3x3_p8.cu and run phase 6 (check, time "
         "and drive the conv kernels), then stop without the result line: "
         "the short first call after a change to the conv kernels")
     args = parser.parse_args(argv)
@@ -925,7 +1209,9 @@ def main(argv=None) -> int:
     engine, state, store, launches, _ = run_main_path(device, smi)
     trace_kernels(device)
     check_eval(engine, state, store)
-    del engine, state, store
+    del engine, state
+    methods = run_other_methods(device, smi, store)
+    del store
 
     wait("conv3x3_p8")
     conv_err = check_conv(device)
@@ -938,6 +1224,8 @@ def main(argv=None) -> int:
                 "ce_dice_bwd": "cvssl_tpu/ops/pallas_kernels.py:131"}
     kernels = [{"name": k, "route": "cuda", "source": source,
                 "replaces": replaces[k], "launches": launches[k],
+                "method_launches": {m: r["launches"][k]
+                                    for m, r in methods.items()},
                 "max_abs_err": err[k], "ms": timing[k]["ms"],
                 "plain_ms": timing[k]["plain_ms"],
                 "bound_ms": timing[k]["bound_ms"],

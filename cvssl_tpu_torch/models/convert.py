@@ -1,54 +1,136 @@
-"""Flax UNet weights -> the port's ``state_dict``: the inverse of
-``cvssl_tpu/models/torch_convert.py::convert_unet_checkpoint``.
+"""Flax UNet-family weights <-> the port's ``state_dict``.
 
-Takes the numpy trees (``params``, ``batch_stats``) of a ``cvssl_tpu`` UNet
-on its plain path and returns torch tensors under the original torch names.
+Takes the numpy trees (``params``, ``batch_stats``) of a ``cvssl_tpu``
+UNet-family model on its plain path and returns torch tensors under the
+port's names, and back. For the plain UNet this is the inverse of
+``cvssl_tpu/models/torch_convert.py::convert_unet_checkpoint`` (the original
+torch names). The original torch tree names none of the variants, so their
+names are SSL4MIS's: ``encoder``, ``main_decoder``, ``aux_decoder1..3``
+(``unet_cct``); ``decoder.up1..4``, ``decoder.out_conv``,
+``decoder.out_conv_dp1..3`` (``unet_ds``, ``unet_urpc``, ``unet_feature``).
+
+Flax names compact submodules by type in call order: ``UNetCCT``'s
+``Decoder_0..3`` are main, aux1, aux2, aux3; ``_MultiScaleDecoder_0``'s
+``Conv_0..3`` are the dp3, dp2, dp1 and dp0 heads; ``UNetFeature`` has its
+four ``UpBlock``s and its ``Conv_0`` at the top level.
+
 Conv kernels go from (kh, kw, in, out) to (out, in, kh, kw).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
+# (port key, flax collection, flax path, kind); kind "kernel" transposes,
+# "count" is BatchNorm's num_batches_tracked, which flax does not keep
+Leaf = Tuple[str, str, Tuple[str, ...], str]
 
-def _conv(p: Mapping) -> Dict[str, np.ndarray]:
-    return {"weight": np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)),
-            "bias": np.asarray(p["bias"])}
+
+def _conv(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    return [(f"{port}.weight", "params", path + ("kernel",), "kernel"),
+            (f"{port}.bias", "params", path + ("bias",), "plain")]
 
 
-def _convblock(out: dict, prefix: str, p: Mapping, bs: Mapping):
+def _convblock(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    out = []
     for i, (conv_i, bn_i) in enumerate(((0, 1), (4, 5))):
-        for k, v in _conv(p[f"Conv_{i}"]).items():
-            out[f"{prefix}.{conv_i}.{k}"] = v
-        bn, st = p[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"]
-        out[f"{prefix}.{bn_i}.weight"] = np.asarray(bn["scale"])
-        out[f"{prefix}.{bn_i}.bias"] = np.asarray(bn["bias"])
-        out[f"{prefix}.{bn_i}.running_mean"] = np.asarray(st["mean"])
-        out[f"{prefix}.{bn_i}.running_var"] = np.asarray(st["var"])
-        out[f"{prefix}.{bn_i}.num_batches_tracked"] = np.zeros((), np.int64)
+        out += _conv(f"{port}.{conv_i}", path + (f"Conv_{i}",))
+        bn, p = f"{port}.{bn_i}", path + (f"BatchNorm_{i}",)
+        out += [(f"{bn}.weight", "params", p + ("scale",), "plain"),
+                (f"{bn}.bias", "params", p + ("bias",), "plain"),
+                (f"{bn}.running_mean", "batch_stats", p + ("mean",), "plain"),
+                (f"{bn}.running_var", "batch_stats", p + ("var",), "plain"),
+                (f"{bn}.num_batches_tracked", "", (), "count")]
+    return out
 
 
-def unet_state_dict_from_flax(params: Mapping, batch_stats: Mapping
-                              ) -> Dict[str, torch.Tensor]:
-    """(params, batch_stats) of ``cvssl_tpu.models.unet.UNet`` -> a
-    ``state_dict`` for ``cvssl_tpu_torch.models.unet.UNet``."""
-    enc_p, enc_bs = params["Encoder_0"], batch_stats["Encoder_0"]
-    dec_p, dec_bs = params["Decoder_0"], batch_stats["Decoder_0"]
+def _encoder(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    out = _convblock(f"{port}.in_conv.conv_conv", path + ("ConvBlock_0",))
+    for k in range(1, 5):
+        out += _convblock(f"{port}.down{k}.maxpool_conv.1.conv_conv",
+                          path + (f"DownBlock_{k - 1}", "ConvBlock_0"))
+    return out
+
+
+def _ups(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    out = []
+    for k in range(1, 5):
+        up = path + (f"UpBlock_{k - 1}",)
+        out += _convblock(f"{port}.up{k}.conv.conv_conv",
+                          up + ("ConvBlock_0",))
+        out += _conv(f"{port}.up{k}.conv1x1", up + ("Conv_0",))
+    return out
+
+
+def _decoder(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    return _ups(port, path) + _conv(f"{port}.out_conv", path + ("Conv_0",))
+
+
+def _multiscale_decoder(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    heads = ("out_conv_dp3", "out_conv_dp2", "out_conv_dp1", "out_conv")
+    out = _ups(port, path)
+    for i, head in enumerate(heads):
+        out += _conv(f"{port}.{head}", path + (f"Conv_{i}",))
+    return out
+
+
+def leaves(net_type: str) -> List[Leaf]:
+    """Every tensor of ``net_type``'s ``state_dict`` with its place in the
+    flax trees."""
+    enc = _encoder("encoder", ("Encoder_0",))
+    if net_type == "unet":
+        return enc + _decoder("decoder", ("Decoder_0",))
+    if net_type == "unet_cct":
+        names = ("main_decoder", "aux_decoder1", "aux_decoder2",
+                 "aux_decoder3")
+        return enc + [leaf for i, n in enumerate(names)
+                      for leaf in _decoder(n, (f"Decoder_{i}",))]
+    if net_type in ("unet_ds", "unet_urpc"):
+        return enc + _multiscale_decoder("decoder",
+                                         ("_MultiScaleDecoder_0",))
+    if net_type == "unet_feature":
+        return (enc + _ups("decoder", ())
+                + _conv("decoder.out_conv", ("Conv_0",)))
+    raise ValueError(f"no flax conversion for {net_type!r}")
+
+
+def _get(tree: Mapping, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def state_dict_from_flax(net_type: str, params: Mapping,
+                         batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """(params, batch_stats) of the ``cvssl_tpu`` model registered as
+    ``net_type`` -> a ``state_dict`` for the port's model of that name."""
+    trees = {"params": params, "batch_stats": batch_stats}
     sd: Dict[str, np.ndarray] = {}
-    _convblock(sd, "encoder.in_conv.conv_conv", enc_p["ConvBlock_0"],
-               enc_bs["ConvBlock_0"])
-    for k in range(1, 5):
-        _convblock(sd, f"encoder.down{k}.maxpool_conv.1.conv_conv",
-                   enc_p[f"DownBlock_{k - 1}"]["ConvBlock_0"],
-                   enc_bs[f"DownBlock_{k - 1}"]["ConvBlock_0"])
-    for k in range(1, 5):
-        up_p = dec_p[f"UpBlock_{k - 1}"]
-        _convblock(sd, f"decoder.up{k}.conv.conv_conv", up_p["ConvBlock_0"],
-                   dec_bs[f"UpBlock_{k - 1}"]["ConvBlock_0"])
-        for name, v in _conv(up_p["Conv_0"]).items():
-            sd[f"decoder.up{k}.conv1x1.{name}"] = v
-    for name, v in _conv(dec_p["Conv_0"]).items():
-        sd[f"decoder.out_conv.{name}"] = v
+    for key, coll, path, kind in leaves(net_type):
+        if kind == "count":
+            sd[key] = np.zeros((), np.int64)
+            continue
+        v = np.asarray(_get(trees[coll], path))
+        sd[key] = np.transpose(v, (3, 2, 0, 1)) if kind == "kernel" else v
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def flax_from_state_dict(net_type: str, state_dict: Mapping
+                         ) -> Tuple[dict, dict]:
+    """The inverse: a port ``state_dict`` (or any mapping with its keys, such
+    as gradients) -> numpy (params, batch_stats) trees."""
+    trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, coll, path, kind in leaves(net_type):
+        if kind == "count":
+            continue
+        v = state_dict[key]
+        v = np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+        if kind == "kernel":
+            v = np.transpose(v, (2, 3, 1, 0))
+        node = trees[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.array(v, order="C")
+    return trees["params"], trees["batch_stats"]

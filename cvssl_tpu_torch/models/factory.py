@@ -1,5 +1,5 @@
-"""2D model registry (port of ``cvssl_tpu/models/factory.py``; the plain
-UNet only so far)."""
+"""2D model registry (port of ``cvssl_tpu/models/factory.py``; the UNet
+family so far)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -10,6 +10,14 @@ from cvssl_tpu_torch.models import unet
 
 _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "unet": lambda in_chns, class_num, **kw: unet.UNet(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "unet_cct": lambda in_chns, class_num, **kw: unet.UNetCCT(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "unet_ds": lambda in_chns, class_num, **kw: unet.UNetDS(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "unet_urpc": lambda in_chns, class_num, **kw: unet.UNetURPC(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "unet_feature": lambda in_chns, class_num, **kw: unet.UNetFeature(
         in_chns=in_chns, num_classes=class_num, **kw),
 }
 

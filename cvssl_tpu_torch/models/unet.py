@@ -1,5 +1,5 @@
-"""2D UNet, NCHW (port of ``cvssl_tpu/models/unet.py`` on its plain path:
-``s2d_levels=0``, ``bilinear=True``).
+"""2D UNet and its variants, NCHW (port of ``cvssl_tpu/models/unet.py`` on
+its plain path: ``s2d_levels=0``, ``bilinear=True``).
 
 Module names are the original torch code's (``encoder.in_conv.conv_conv.0``
 ... ``decoder.out_conv``), so ``models/convert.py`` is the inverse of
@@ -154,3 +154,172 @@ class UNet(nn.Module):
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         return self.decoder(self.encoder(x, generator), generator)
+
+
+# ---------------------------------------------------------------------------
+# Feature perturbations (CCT / URPC). JAX: ``unet.py:411-434``, class axis
+# last there, 1 here. The draws go through ``_uniform`` and ``_keep``, one
+# call each per perturbation, from the caller's generator.
+# ---------------------------------------------------------------------------
+
+def _uniform(shape, lo: float, hi: float,
+             generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """U[lo, hi) float32 draws."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u * (hi - lo) + lo
+
+
+def _keep(shape, p_keep: float, generator: Optional[torch.Generator],
+          device) -> torch.Tensor:
+    """Bernoulli(p_keep) boolean draws (JAX: ``uniform < p``)."""
+    return torch.rand(shape, generator=generator, device=device) < p_keep
+
+
+def feature_noise(x: torch.Tensor, generator: Optional[torch.Generator],
+                  uniform_range: float = 0.3) -> torch.Tensor:
+    """x * U(-r, r) + x with the noise drawn over ``x.shape[1:]`` and shared
+    across the batch."""
+    noise = _uniform(x.shape[1:], -uniform_range, uniform_range, generator,
+                     x.device).to(x.dtype)
+    return x * noise[None] + x
+
+
+def feature_dropout(x: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Drop the high-attention sites: attention is the channel mean, the
+    per-sample threshold max(attention) * U(0.7, 0.9); keep attention <
+    threshold."""
+    attention = x.mean(dim=1, keepdim=True)
+    max_val = attention.reshape(x.shape[0], -1).amax(dim=1)
+    thresh = max_val * _uniform((x.shape[0],), 0.7, 0.9, generator,
+                                x.device)
+    return x * (attention < thresh.reshape(-1, 1, 1, 1)).to(x.dtype)
+
+
+def dropout_perturb(x: torch.Tensor, generator: Optional[torch.Generator],
+                    p: float = 0.3) -> torch.Tensor:
+    """Inverted dropout with a Bernoulli(1 - p) keep mask."""
+    keep = _keep(x.shape, 1.0 - p, generator, x.device)
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# UNet variants. The original torch tree names none of these; the module
+# names are SSL4MIS's (``encoder``, ``main_decoder``, ``aux_decoder1..3``;
+# ``decoder.up1..4``, ``decoder.out_conv``, ``decoder.out_conv_dp1..3``).
+# ---------------------------------------------------------------------------
+
+class UNetFeature(nn.Module):
+    """UNet that also returns the decoder's last feature map: (logits, h).
+    JAX: ``UNetFeature`` (``unet.py:473``)."""
+
+    def __init__(self, in_chns: int = 1, num_classes: int = 4,
+                 features: Sequence[int] = DEFAULT_FEATURES,
+                 dropout: Sequence[float] = DEFAULT_DROPOUT):
+        super().__init__()
+        self.encoder = Encoder(in_chns, features, dropout)
+        self.decoder = Decoder(num_classes, features)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x0, x1, x2, x3, x4 = self.encoder(x, generator)
+        d = self.decoder
+        h = d.up1(x4, x3, generator)
+        h = d.up2(h, x2, generator)
+        h = d.up3(h, x1, generator)
+        h = d.up4(h, x0, generator)
+        return d.out_conv(h), h
+
+
+class UNetCCT(nn.Module):
+    """One encoder, a main decoder and three aux decoders fed perturbed
+    features (feature noise, dropout, feature dropout), in train mode only;
+    returns four logit maps. JAX: ``UNetCCT`` (``unet.py:495``), whose
+    draws come in this order: the noise of every level, then the dropout
+    masks, then the feature-dropout thresholds."""
+
+    def __init__(self, in_chns: int = 1, num_classes: int = 4,
+                 features: Sequence[int] = DEFAULT_FEATURES,
+                 dropout: Sequence[float] = DEFAULT_DROPOUT):
+        super().__init__()
+        self.encoder = Encoder(in_chns, features, dropout)
+        self.main_decoder = Decoder(num_classes, features)
+        self.aux_decoder1 = Decoder(num_classes, features)
+        self.aux_decoder2 = Decoder(num_classes, features)
+        self.aux_decoder3 = Decoder(num_classes, features)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        feats = self.encoder(x, generator)
+        main = self.main_decoder(feats, generator)
+        if self.training:
+            aux1_f = [feature_noise(f, generator) for f in feats]
+            aux2_f = [dropout_perturb(f, generator) for f in feats]
+            aux3_f = [feature_dropout(f, generator) for f in feats]
+        else:
+            aux1_f = aux2_f = aux3_f = feats
+        return (main, self.aux_decoder1(aux1_f, generator),
+                self.aux_decoder2(aux2_f, generator),
+                self.aux_decoder3(aux3_f, generator))
+
+
+class MultiScaleDecoder(Decoder):
+    """The UNet decoder with 3x3 heads on the up1..up3 outputs as well,
+    each upsampled (nearest) to the input size; returns (dp0, dp1, dp2, dp3).
+    ``perturb`` (URPC) applies, in train mode, dropout p = 0.5 before the
+    dp3 head, feature dropout before dp2 and feature noise before dp1.
+    JAX: ``_MultiScaleDecoder`` (``unet.py:523``)."""
+
+    def __init__(self, num_classes: int, features: Sequence[int],
+                 perturb: bool = False):
+        super().__init__(num_classes, features)
+        f = features
+        self.perturb = perturb
+        self.out_conv_dp3 = nn.Conv2d(f[3], num_classes, 3, padding=1)
+        self.out_conv_dp2 = nn.Conv2d(f[2], num_classes, 3, padding=1)
+        self.out_conv_dp1 = nn.Conv2d(f[1], num_classes, 3, padding=1)
+
+    def forward(self, feats, out_hw, generator: Optional[torch.Generator]
+                = None):
+        x0, x1, x2, x3, x4 = feats
+        perturb = self.perturb and self.training
+
+        x = self.up1(x4, x3, generator)
+        h3 = dropout_perturb(x, generator, p=0.5) if perturb else x
+        dp3 = self.out_conv_dp3(h3)
+        x = self.up2(x, x2, generator)
+        h2 = feature_dropout(x, generator) if perturb else x
+        dp2 = self.out_conv_dp2(h2)
+        x = self.up3(x, x1, generator)
+        h1 = feature_noise(x, generator) if perturb else x
+        dp1 = self.out_conv_dp1(h1)
+        x = self.up4(x, x0, generator)
+        dp0 = self.out_conv(x)
+
+        def up(z):  # nearest, as torch's F.interpolate default
+            return F.interpolate(z, size=tuple(out_hw), mode="nearest")
+        return dp0, up(dp1), up(dp2), up(dp3)
+
+
+class UNetDS(nn.Module):
+    """Deep-supervision UNet: four logit maps at the input size. JAX:
+    ``UNetDS`` (``unet.py:564``)."""
+
+    perturb = False
+
+    def __init__(self, in_chns: int = 1, num_classes: int = 4,
+                 features: Sequence[int] = DEFAULT_FEATURES,
+                 dropout: Sequence[float] = DEFAULT_DROPOUT):
+        super().__init__()
+        self.encoder = Encoder(in_chns, features, dropout)
+        self.decoder = MultiScaleDecoder(num_classes, features,
+                                         perturb=self.perturb)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return self.decoder(self.encoder(x, generator), x.shape[2:],
+                            generator)
+
+
+class UNetURPC(UNetDS):
+    """URPC UNet: UNetDS with the perturbations before its aux heads in
+    train mode. JAX: ``UNetURPC`` (``unet.py:581``)."""
+
+    perturb = True

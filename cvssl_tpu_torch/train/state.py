@@ -64,9 +64,40 @@ class StepCtx:
         with torch.no_grad(), self._autocast(x):
             return model(x, self.generator)
 
+    def forward_teacher_scan(self, name: str, x_groups: torch.Tensor):
+        """Sequential teacher forwards under no_grad, one per group of
+        ``x_groups`` (n_groups, group_batch, C, H, W): the reference's
+        Monte-Carlo loop of separate passes
+        (``train_uncertainty_aware_mean_teacher_2D.py:163-172``). BatchNorm
+        normalises with each pass's own batch statistics and the running
+        buffers update pass after pass; each pass draws its own dropout
+        bytes. Returns the logits stacked on a leading group axis. JAX:
+        ``StepCtx.forward_teacher_scan`` (a ``lax.scan``)."""
+        model = self.teachers[name]
+        with torch.no_grad(), self._autocast(x_groups):
+            return torch.stack([model(xg, self.generator) for xg in x_groups])
+
+    # -- draws, all from the step's generator (a resume restores it) --------
     def normal(self, shape, device) -> torch.Tensor:
         """Standard normal draws from the step's generator."""
         return torch.randn(shape, generator=self.generator, device=device)
+
+    def randint(self, high: int) -> torch.Tensor:
+        """One integer in [0, high), as an int64 tensor on the generator's
+        device (no host round trip)."""
+        g = self.generator
+        return torch.randint(0, high, (), generator=g, device=g.device)
+
+    def beta(self, alpha: float, shape) -> torch.Tensor:
+        """Beta(alpha, alpha) float32 draws as G1 / (G1 + G2) of two
+        Gamma(alpha) draws (``torch.distributions.Beta`` would draw from the
+        global generator). The gammas are drawn in float64, so that small
+        alphas (ICT's 0.2) do not underflow both to 0."""
+        g = self.generator
+        a = torch.full((2,) + tuple(shape), float(alpha), dtype=torch.float64,
+                       device=g.device)
+        g1, g2 = torch._standard_gamma(a, generator=g)
+        return (g1 / (g1 + g2)).float()
 
     def consistency_weight(self) -> float:
         from cvssl_tpu_torch.ops.ramps import consistency_weight

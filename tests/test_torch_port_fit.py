@@ -25,7 +25,7 @@ from cvssl_tpu.train.engine import Engine as JEngine
 from cvssl_tpu_torch.data import datasets as tdata
 from cvssl_tpu_torch.data import synthetic as tsyn
 from cvssl_tpu_torch.eval import val2d as tval2d
-from cvssl_tpu_torch.models.convert import unet_state_dict_from_flax
+from cvssl_tpu_torch.models.convert import state_dict_from_flax
 from cvssl_tpu_torch.models.unet import UNet as TUNet
 from cvssl_tpu_torch.ops import edt as tedt
 from cvssl_tpu_torch.ops import metrics as tmetrics
@@ -35,6 +35,18 @@ from cvssl_tpu_torch.train.engine import Engine as TEngine
 from cvssl_tpu_torch.train.engine import fit
 from cvssl_tpu_torch.train.methods.mean_teacher import MeanTeacher
 from cvssl_tpu_torch.utils import checkpoint as ckpt
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch on one intra-op thread: parallel pytest workers share the
+    cores, and oversubscribed OpenMP pools run these tests many times
+    slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 C = 4
 FEATURES = (4, 8, 16, 32, 64)
@@ -248,7 +260,7 @@ def validated(trees):
     tcfg = TConfig(**kw)
     teng = TEngine(tcfg, method=_NarrowMT(tcfg), device="cpu")
     tstate = teng.init_state()
-    tstate.models["model"].load_state_dict(unet_state_dict_from_flax(
+    tstate.models["model"].load_state_dict(state_dict_from_flax("unet",
         jax.tree_util.tree_map(np.asarray, jstate.params["model"]),
         jax.tree_util.tree_map(np.asarray, jstate.batch_stats["model"])))
     return dict(want=want, teng=teng, tstate=tstate, val_ds=val_ds)
@@ -500,3 +512,116 @@ def test_cli_trains_on_the_cpu(trees, tmp_path):
     assert not os.path.exists(os.path.join(snap, "ema_model_iter_2.ckpt"))
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(["--root_path", troot, "--snapshot_root", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# the other 2D methods through fit and the CLI
+# ---------------------------------------------------------------------------
+
+def _narrow_method(cfg):
+    """``cfg.method`` on narrow models (dropout kept: more draws from the
+    step's generator for the resume to restore)."""
+    from cvssl_tpu_torch.models import net_factory
+    from cvssl_tpu_torch.train.methods.base import get_method
+
+    class Narrow(type(get_method(cfg.method, cfg))):
+        def _factory(self, net_type):
+            return net_factory(net_type, 1, C, features=FEATURES)
+    return Narrow(cfg)
+
+
+def _fit_method(cfg, steps):
+    engine = TEngine(cfg, method=_narrow_method(cfg), device="cpu")
+    return fit(cfg, engine=engine, max_steps=steps)
+
+
+@pytest.mark.parametrize("method", ["uamt", "ict", "deep_co_training",
+                                    "cps", "cct", "urpc"])
+def test_fit_and_get_method_accept_the_2d_methods(trees, tmp_path, method):
+    _, troot = trees
+    cfg = _fit_cfg(troot, tmp_path, method=method, val_every=50,
+                   ckpt_every=50, patch_size=(32, 32))
+    result = _fit_method(cfg, 1)
+    assert result["iterations"] == 1
+    assert set(result["best_dice"]) == set(result["state"].models)
+
+
+def test_fit_cps_writes_the_dual_model_names(trees, tmp_path):
+    """JAX ``engine.py:693-707``: the slot prefix on every weights file,
+    ``{model}_best_{slot}``, no EMA files (cps has no teacher). Seed 1:
+    both models reach a Dice above 0, so both write their best files."""
+    _, troot = trees
+    cfg = _fit_cfg(troot, tmp_path, method="cps", seed=1)
+    result = _fit_method(cfg, 4)
+    files = set(os.listdir(cfg.snapshot_path()))
+    for name in ("model1_iter_2.ckpt", "model2_iter_2.ckpt",
+                 "model1_iter_4.ckpt", "model2_iter_4.ckpt",
+                 "model_iter_2.ckpt", "model_iter_4.ckpt"):
+        assert name in files, name
+    assert not any("ema" in f for f in files), files
+    assert not any(f.startswith("iter_") for f in files), files
+    for slot in ("model1", "model2"):
+        assert result["best_dice"][slot] > 0.0
+        assert f"unet_best_{slot}.ckpt" in files
+        assert any(f.startswith(f"{slot}_iter_") and "_dice_" in f
+                   for f in files)
+        best = ckpt.load_weights(os.path.join(cfg.snapshot_path(),
+                                              f"unet_best_{slot}.ckpt"))
+        assert set(best) == set(result["state"].models[slot].state_dict())
+    full = ckpt.load_weights(os.path.join(cfg.snapshot_path(),
+                                          "model_iter_4.ckpt"))
+    assert set(full["state"]["optimizers"]) == {"model1", "model2"}
+    assert full["state"]["teachers"] == {}
+
+
+@pytest.mark.parametrize("method", ["uamt", "cps"])
+def test_fit_resume_is_bit_equal_for(trees, tmp_path, method):
+    """uamt (the most draws from the step's generator: noise, dropout bytes
+    of five passes) and cps (two models, two optimizers): stopped at 2 and
+    resumed to 4 == 4 in one run, bit for bit."""
+    _, troot = trees
+    straight = _fit_method(_fit_cfg(troot, tmp_path / "a", method=method), 4)
+    cfg = _fit_cfg(troot, tmp_path / "b", method=method)
+    _fit_method(cfg, 2)
+    resumed = _fit_method(cfg, 4)
+    with open(os.path.join(cfg.snapshot_path(), "log.txt")) as f:
+        assert "resumed from iteration 2" in f.read()
+    assert straight["best_dice"] == resumed["best_dice"]
+    ta, tb = (ckpt.state_tree(r["state"]) for r in (straight, resumed))
+    assert ta["step"] == tb["step"] == 4
+    for group in ("models", "teachers"):
+        assert set(ta[group]) == set(tb[group])
+        for n in ta[group]:
+            for k, v in ta[group][n].items():
+                assert torch.equal(v, tb[group][n][k]), (group, n, k)
+    assert set(ta["optimizers"]) == set(resumed["state"].models)
+    for n, oa in ta["optimizers"].items():
+        ob = tb["optimizers"][n]
+        assert oa["count"] == ob["count"] == 4
+        for i, st in oa["state"]["state"].items():
+            assert torch.equal(st["momentum_buffer"],
+                               ob["state"]["state"][i]["momentum_buffer"])
+    assert torch.equal(ta["generator"], tb["generator"])
+
+
+@pytest.mark.parametrize("method", ["cps", "uamt"])
+def test_cli_trains_the_2d_methods_on_the_cpu(trees, tmp_path, method):
+    """Full-width models through the CLI: the method runs, and the
+    periodic files carry its slots' names."""
+    _, troot = trees
+    result = tcli.main(["--root_path", troot, "--exp", "cli",
+                        "--method", method, "--max_iterations", "2",
+                        "--batch_size", "4", "--labeled_bs", "2",
+                        "--labeled_slices", "8", "--patch_size", "32", "32",
+                        "--val_every", "2", "--ckpt_every", "2",
+                        "--device", "cpu", "--dtype", "float32",
+                        "--snapshot_root", str(tmp_path)])
+    assert result["iterations"] == 2
+    snap = os.path.join(tmp_path, "cli_7_labeled", "unet")
+    files = set(os.listdir(snap))
+    assert "model_iter_2.ckpt" in files
+    if method == "cps":
+        assert {"model1_iter_2.ckpt", "model2_iter_2.ckpt"} <= files
+        assert not any("ema" in f for f in files)
+    else:
+        assert {"iter_2.ckpt", "ema_model_iter_2.ckpt"} <= files

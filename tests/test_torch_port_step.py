@@ -19,7 +19,7 @@ from cvssl_tpu.train.methods.base import get_method as jget_method
 from cvssl_tpu.train.state import StepCtx as JStepCtx
 from cvssl_tpu_torch.data.device_store import DeviceSliceStore
 from cvssl_tpu_torch.data.sampler import TwoStreamBatchSampler
-from cvssl_tpu_torch.models.convert import unet_state_dict_from_flax
+from cvssl_tpu_torch.models.convert import state_dict_from_flax
 from cvssl_tpu_torch.models.unet import UNet as TUNet
 from cvssl_tpu_torch.train.config import TrainConfig as TConfig
 from cvssl_tpu_torch.train.engine import Engine as TEngine
@@ -107,7 +107,7 @@ def step_pair():
     tcfg = TConfig(**CFG)
     teng = TEngine(tcfg, method=_NarrowMT(tcfg), device="cpu")
     tstate = teng.init_state()
-    sd = unet_state_dict_from_flax(p0, bs0)
+    sd = state_dict_from_flax("unet", p0, bs0)
     tstate.models["model"].load_state_dict(sd)
     tstate.teachers["model"].load_state_dict(sd)
     tstate.step = STEP
@@ -196,7 +196,7 @@ def test_supervised_step_matches_jax():
     tcfg = TConfig(**cfg)
     eng = TEngine(tcfg, method=_narrow(Supervised)(tcfg), device="cpu")
     state = eng.init_state()
-    state.models["model"].load_state_dict(unet_state_dict_from_flax(
+    state.models["model"].load_state_dict(state_dict_from_flax("unet",
         jax.tree_util.tree_map(np.asarray, v["params"]),
         jax.tree_util.tree_map(np.asarray, v["batch_stats"])))
     state, metrics = eng.train_step(state, {

@@ -9,7 +9,7 @@ import torch
 from cvssl_tpu.models.torch_convert import convert_unet_checkpoint
 from cvssl_tpu.models.unet import UNet as JUNet
 from cvssl_tpu_torch.models import net_factory
-from cvssl_tpu_torch.models.convert import unet_state_dict_from_flax
+from cvssl_tpu_torch.models.convert import state_dict_from_flax
 from cvssl_tpu_torch.models.unet import UNet as TUNet
 
 FEATURES = (4, 8, 16, 32, 64)
@@ -44,7 +44,7 @@ def _flax_unet(seed=0):
 
 def _port(params, stats):
     t = TUNet(1, C, features=FEATURES, dropout=(0.0,) * 5)
-    t.load_state_dict(unet_state_dict_from_flax(params, stats), strict=True)
+    t.load_state_dict(state_dict_from_flax("unet", params, stats), strict=True)
     return t
 
 
@@ -59,7 +59,7 @@ def _to_nchw(x):
 
 def test_conversion_round_trips_exactly():
     _, params, stats = _flax_unet()
-    sd = {k: v.numpy() for k, v in unet_state_dict_from_flax(
+    sd = {k: v.numpy() for k, v in state_dict_from_flax("unet",
         params, stats).items()}
     p2, s2 = convert_unet_checkpoint(sd)
     for want, got in ((params, p2), (stats, s2)):
