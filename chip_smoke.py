@@ -32,19 +32,24 @@ the run with a non-zero exit:
 4. eval forward: ``predict_fn`` on a batch, and the eval-mode forward in
    float32 on the card against the same model on the CPU;
 5. the other 2D methods at full width on phase 3's store (batch 24 =
-   12 + 12, 256^2, dtype auto): first where the mean-teacher step makes the
-   host wait (``torch.cuda``'s sync debug mode, "warn"); then for each of
-   uamt, ict, deep_co_training, cps, cct and urpc its models' parameter
-   counts (UNet 1,813,764, UNetCCT 3,713,664, UNetURPC 1,821,840), 5 steps
-   from step 0 and 5 from step 1000 with kernel #1 launched 1, 1, 1, 2, 4,
-   4 times a step (forward and backward), finite losses, a live
-   consistency term after step 1000 (for cps: its pseudo-supervision
-   term, recomputed from the other model's argmax), the teachers (uamt,
-   ict) and both models (cps) moved, slices/s and peak memory over 30
-   steps, and a short profile of each method's step (device busy time per
-   step); every method's checked steps run under the sync debug mode
-   "error" if the mean-teacher step made no synchronising call. uamt's
-   output conv is scaled by 8 so that its MC teacher is sure somewhere;
+   12 + 12, 256^2, dtype auto: bf16 for the plain UNet, float32 for the
+   UNet variants and the discriminator, as in JAX): first where the
+   mean-teacher step makes the host wait (``torch.cuda``'s sync debug
+   mode, "warn"); then for each of uamt, ict, deep_co_training, cps, cct,
+   urpc, fixmatch (on its own ``weak_strong`` store over the same slices),
+   adversarial and exam_student_teacher its models' parameter counts (UNet
+   1,813,764, UNetCCT 3,713,664, UNetURPC 1,821,840, FCDiscriminator
+   2,762,754), 5 steps from step 0 and 5 from step 1000 with kernel #1
+   launched 1, 1, 1, 2, 4, 4, 1, 1, 1 times a step (forward and backward),
+   finite losses, a live consistency term after step 1000 (for cps: its
+   pseudo-supervision term, recomputed from the other model's argmax; for
+   fixmatch its unsupervised term), the teachers (uamt, ict, fixmatch,
+   exam), both models (cps) and the discriminators moved, slices/s and
+   peak memory over 30 steps, and a short profile of each method's step
+   (device busy time per step); every method's checked steps run under the
+   sync debug mode "error" if the mean-teacher step made no synchronising
+   call. uamt's output conv is scaled by 8 so that its MC teacher is sure
+   somewhere;
 6. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
    three against the plain version run on the card in float64 at
    (24, 256, 256, 16) f32 and bf16 input (tile_h 32), at the JAX tests'
@@ -71,7 +76,9 @@ the run with a non-zero exit:
    data, 200 iterations with val and checkpoints every 100: the dual-model
    checkpoint files (``model1_``/``model2_`` prefixes,
    ``unet_best_model1.ckpt``, no EMA files), two launches of each kernel an
-   iteration;
+   iteration; then ``fit`` of fixmatch, 100 iterations with one
+   validation and one checkpoint, through the store's ``weak_strong``
+   mode;
 8. one JSON line of the kernels (kernel #1's with its launches in each
    method's run of phase 5), then the result line
    ``{"ok": true, "device": {...}}``.
@@ -121,16 +128,20 @@ FIT_STEPS, FIT_RESUME_STEPS, FIT_EVERY = 400, 600, 200
 # the other UNet-family 2D methods: kernel #1's forward (and backward)
 # launches per step of each
 METHOD_LAUNCHES = {"uamt": 1, "ict": 1, "deep_co_training": 1, "cps": 2,
-                   "cct": 4, "urpc": 4}
+                   "cct": 4, "urpc": 4, "fixmatch": 1, "adversarial": 1,
+                   "exam_student_teacher": 1}
 METHOD_STEPS = 5               # from step 0, and again from step 1000
 MODEL_PARAMS = {"unet": 1_813_764, "unet_cct": 3_713_664,
-                "unet_urpc": 1_821_840}
+                "unet_urpc": 1_821_840, "discriminator": 2_762_754}
+# the metric that carries each method's unsupervised term
+CONSISTENCY_KEY = {"fixmatch": "unsup_loss"}
 # uamt's output conv (student and teacher) scaled up, so that the MC
 # teacher of a freshly initialised UNet is sure at some sites and the
 # masked consistency term is live (random init alone: every site's entropy
 # is above the threshold)
 UAMT_LOGIT_SCALE = 8.0
 CPS_FIT_STEPS, CPS_FIT_EVERY = 200, 100
+FIXMATCH_FIT_STEPS = 100       # one validation, one checkpoint
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -684,6 +695,7 @@ def run_other_methods(device, card, store):
     makes no synchronising call. cps's pseudo-supervision terms are read
     through ``_pseudo_ce`` in its checked steps and recomputed here."""
     import torch
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
     from cvssl_tpu_torch.train.engine import Engine
 
@@ -702,13 +714,21 @@ def run_other_methods(device, card, store):
     results = {}
     for method, per_step in METHOD_LAUNCHES.items():
         engine = Engine(method_config(method))
-        engine.attach_store(store)
+        if engine.method.transform == "weak_strong":
+            # fixmatch's own store over the same slices (freed with the
+            # engine)
+            t0 = time.perf_counter()
+            engine.attach_store(DeviceSliceStore(
+                SyntheticACDC(), engine.cfg.patch_size, mode="weak_strong"))
+            print(f"weak_strong store: {tuple(engine.store.images.shape)} "
+                  f"built in {time.perf_counter() - t0:.1f} s")
+        else:
+            engine.attach_store(store)
         state = engine.init_state()
         counts = {}
         for slot, model in state.models.items():
             n = sum(p.numel() for p in model.parameters())
-            kind = {"cct": "unet_cct", "urpc": "unet_urpc"}.get(method,
-                                                                "unet")
+            kind = engine.method.net_types()[slot]
             if n != MODEL_PARAMS[kind]:
                 raise SystemExit(f"{method} {slot}: {n} parameters, not "
                                  f"{MODEL_PARAMS[kind]} ({kind})")
@@ -718,7 +738,9 @@ def run_other_methods(device, card, store):
                 with torch.no_grad():
                     m.decoder.out_conv.weight.mul_(UAMT_LOGIT_SCALE)
                     m.decoder.out_conv.bias.mul_(UAMT_LOGIT_SCALE)
-        watched = state.teachers or state.models
+        watched = dict(state.teachers or state.models)
+        watched.update({n: state.models[n]
+                        for n in engine.method.adversarial_models})
         start_params = {n: [p.detach().clone() for p in m.parameters()]
                         for n, m in watched.items()}
         pseudo = spy_pseudo_ce(engine.method) if method == "cps" else None
@@ -749,7 +771,7 @@ def run_other_methods(device, card, store):
         if not all(math.isfinite(x) for v in vals for x in v.values()):
             raise SystemExit(f"{method}: non-finite metrics {vals}")
         late = vals[METHOD_STEPS:]
-        cons_key = "consistency_loss"
+        cons_key = CONSISTENCY_KEY.get(method, "consistency_loss")
         if pseudo is not None:
             del engine.method._pseudo_ce
             if len(pseudo) != 4 * METHOD_STEPS:
@@ -784,6 +806,10 @@ def run_other_methods(device, card, store):
             "peak_gib": peak / 2 ** 30}
         extra = (f", uncertainty mask {late[-1]['uncertainty_mask_frac']:.4f}"
                  if method == "uamt" else "")
+        if engine.method.adversarial_models:
+            extra += (f", loss_d {late[-1]['loss_d']:.4f} dan_acc "
+                      f"{late[-1]['dan_acc']:.3f}")
+        extra += f"; compute dtypes {engine.model_dtypes}"
         print(f"method {method}: parameters {counts}; "
               f"{2 * METHOD_STEPS} steps, launches {launches} "
               f"({per_step} + {per_step} a step"
@@ -1089,6 +1115,7 @@ def run_fit(device, card):
           f"{peak / 2 ** 20:.1f} MiB above its inputs, on {card}")
     del engine, results, state
     run_cps_fit(card, train_ds, val_ds)
+    run_fixmatch_fit(card, train_ds, val_ds)
 
 
 def run_cps_fit(card, train_ds, val_ds):
@@ -1133,6 +1160,49 @@ def run_cps_fit(card, train_ds, val_ds):
           f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
           f"{launches}, best dice {res['best_dice']}, on {card}")
     print(f"cps fit files: {files}")
+
+
+def run_fixmatch_fit(card, train_ds, val_ds):
+    """Phase 7c: ``fit`` of fixmatch on the same data, 100 iterations with
+    one validation and one checkpoint: ``fit`` builds the store in the
+    ``weak_strong`` mode, kernel #1 runs once forward and once backward an
+    iteration, the mean teacher's file names (its EMA teacher is kept)."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, fit
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fixmatch_")
+    cfg = method_config("fixmatch", val_every=FIXMATCH_FIT_STEPS,
+                        ckpt_every=FIXMATCH_FIT_STEPS, log_every=50,
+                        snapshot_root=tmp, exp="ACDC/smoke_fixmatch")
+    snap = cfg.snapshot_path()
+    engine = Engine(cfg)
+    fcd.reset_launches()
+    res = fit(cfg, engine=engine, max_steps=FIXMATCH_FIT_STEPS,
+              data=(train_ds, two_stream(cfg.seed), val_ds))
+    torch.cuda.synchronize()
+    launches = dict(fcd.LAUNCHES)
+    if res["iterations"] != FIXMATCH_FIT_STEPS:
+        raise SystemExit(f"fixmatch fit stopped at {res['iterations']}")
+    if engine.store.mode != "weak_strong":
+        raise SystemExit(f"fixmatch fit: store mode {engine.store.mode}")
+    if any(v != FIXMATCH_FIT_STEPS for v in launches.values()):
+        raise SystemExit(f"fixmatch fit: launches {launches} in "
+                         f"{FIXMATCH_FIT_STEPS} iterations")
+    if len(res["val_seconds"]) != 1:
+        raise SystemExit(f"fixmatch fit: {len(res['val_seconds'])} "
+                         "validations")
+    files = sorted(os.listdir(snap))
+    k = FIXMATCH_FIT_STEPS
+    for name in (f"iter_{k}.ckpt", f"ema_model_iter_{k}.ckpt",
+                 f"model_iter_{k}.ckpt"):
+        if name not in files:
+            raise SystemExit(f"fixmatch fit: no {name} in {files}")
+    print(f"fixmatch fit to {k}: {res['slices_per_sec']:.2f} slices/s "
+          f"including validation and checkpoints (weak_strong store), val "
+          f"pass {[round(v, 3) for v in res['val_seconds']]} s, fused "
+          f"launches {launches}, best dice {res['best_dice']}, on {card}")
+    print(f"fixmatch fit files: {files}")
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,7 @@
 """Device-resident 2D dataset + in-step augmentation (port of
 ``cvssl_tpu/data/device_store.py``: ``DeviceSliceStore`` in
-``mode="default"`` and ``gather_augment``).
+``mode="default"`` with ``gather_augment``, and in ``mode="weak_strong"``
+with ``gather_weak_strong``, FixMatch's weak and strong views).
 
 All train slices live on the card, pre-zoomed to the patch size; per step
 only the batch indices cross from the host. The reference's RandomGenerator
@@ -8,8 +9,8 @@ only the batch indices cross from the host. The reference's RandomGenerator
 the device, batched, with the JAX package's exact three-shear rotation, so
 the same indices and draws give the same batch as JAX, bit for bit.
 
-The random draws (u1, u2, k, axis, aidx) come from a ``torch.Generator``
-(:func:`draw_augment`) and enter :func:`gather_augment` as tensors, so a
+The random draws come from a ``torch.Generator`` (:func:`draw_augment`,
+:func:`draw_weak_strong`) and enter the gather functions as tensors, so a
 test can inject them.
 """
 from __future__ import annotations
@@ -22,16 +23,24 @@ import torch
 from scipy import ndimage
 
 _MAX_ANGLE = 20
+# the JAX store's modes that are ported ("weak" waits for the method that
+# needs it)
+STORE_MODES = ("default", "weak_strong")
 
 
 class DeviceSliceStore:
     """All train slices resident on ``device``, pre-zoomed (order 0) to
-    ``patch_size``: images in ``image_dtype``, labels uint8. Every batch
-    gets the RandomGenerator augmentation (the JAX store's default
-    mode)."""
+    ``patch_size``: images in ``image_dtype``, labels uint8. ``mode``
+    "default" gives every batch the RandomGenerator augmentation,
+    "weak_strong" FixMatch's WeakStrongAugment (``dataset.py:211-245``)."""
 
     def __init__(self, dataset, patch_size: Tuple[int, int],
-                 image_dtype=torch.bfloat16, device="cuda"):
+                 image_dtype=torch.bfloat16, device="cuda",
+                 mode: str = "default"):
+        if mode not in STORE_MODES:
+            raise ValueError(f"store mode {mode!r} is not ported; ported: "
+                             f"{STORE_MODES}")
+        self.mode = mode
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceSliceStore: no CUDA device; pass "
@@ -57,6 +66,10 @@ class DeviceSliceStore:
     def batch_fn(self, arrays, indices: torch.Tensor,
                  generator: Optional[torch.Generator] = None):
         images, labels = arrays
+        if self.mode == "weak_strong":
+            draws = draw_weak_strong(indices.shape[0], generator,
+                                     images.device)
+            return gather_weak_strong(images, labels, indices, draws)
         draws = draw_augment(indices.shape[0], generator, images.device)
         return gather_augment(images, labels, indices, draws)
 
@@ -191,3 +204,66 @@ def gather_augment(images: torch.Tensor, labels: torch.Tensor,
     return {"image": img.to(torch.float32, memory_format=contiguous)[:, None],
             "label": lab.to(torch.int32, memory_format=contiguous),
             "idx": indices.to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# weak_strong mode (FixMatch). JAX: ``device_store.py:239-281``.
+# ---------------------------------------------------------------------------
+
+def draw_weak_strong(b: int, generator: Optional[torch.Generator],
+                     device) -> Dict[str, torch.Tensor]:
+    """The per-sample draws of one weak/strong batch: k in {0..3}, axis in
+    {0, 1}, brightness and contrast factors bf, cf ~ U[0.2, 1.8), and the
+    jitter order ~ U[0, 1)."""
+    def randint(high):
+        return torch.randint(0, high, (b,), generator=generator,
+                             device=device)
+
+    def uniform(lo, hi):
+        u = torch.rand(b, generator=generator, device=device)
+        return u * (hi - lo) + lo
+    return {"k": randint(4), "axis": randint(2), "bf": uniform(0.2, 1.8),
+            "cf": uniform(0.2, 1.8), "order": uniform(0.0, 1.0)}
+
+
+def _color_jitter(x: torch.Tensor, draws: Dict[str, torch.Tensor]):
+    """Grayscale ColorJitter(0.8, 0.8, 0.8, 0.2) of (B, H, W) float32:
+    brightness clip(x * bf, 0, 1) and contrast clip(cf * x + (1 - cf) *
+    mean(x), 0, 1), the mean per sample; contrast(brightness(x)) where the
+    order draw is < 0.5, else brightness(contrast(x)). JAX:
+    ``device_store._color_jitter_device``."""
+    bf = draws["bf"][:, None, None]
+    cf = draws["cf"][:, None, None]
+
+    def brightness(v):
+        return torch.clamp(v * bf, 0.0, 1.0)
+
+    def contrast(v):
+        return torch.clamp(cf * v + (1.0 - cf) * v.mean(dim=(1, 2),
+                                                         keepdim=True),
+                           0.0, 1.0)
+    first = (draws["order"] < 0.5)[:, None, None]
+    return torch.where(first, contrast(brightness(x)),
+                       brightness(contrast(x)))
+
+
+def gather_weak_strong(images: torch.Tensor, labels: torch.Tensor,
+                       indices: torch.Tensor,
+                       draws: Dict[str, torch.Tensor]):
+    """Batch assembly for FixMatch: gather rows and cast the images to
+    float32 first (unlike :func:`gather_augment`, which works in the
+    storage dtypes); weak = flip(rot90(image, k), axis), the label the same
+    way; strong = the color jitter of weak. NCHW images, int32 labels:
+    ``image`` (not augmented), ``image_weak``, ``image_strong``,
+    ``label_aug``, ``label`` (= ``label_aug``) and ``idx``. JAX:
+    ``device_store.gather_weak_strong``."""
+    img = images[indices].to(torch.float32)
+    lab = labels[indices].to(torch.int32)
+    # rot90 views leave transposed strides behind
+    weak = _flip_axis(_rot90_k(img, draws["k"]), draws["axis"]).contiguous()
+    lab_aug = _flip_axis(_rot90_k(lab, draws["k"]),
+                         draws["axis"]).contiguous()
+    strong = _color_jitter(weak, draws)
+    return {"image": img[:, None], "image_weak": weak[:, None],
+            "image_strong": strong[:, None], "label_aug": lab_aug,
+            "label": lab_aug, "idx": indices.to(torch.int32)}

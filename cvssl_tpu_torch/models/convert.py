@@ -1,18 +1,26 @@
-"""Flax UNet-family weights <-> the port's ``state_dict``.
+"""Flax UNet-family and discriminator weights <-> the port's ``state_dict``.
 
 Takes the numpy trees (``params``, ``batch_stats``) of a ``cvssl_tpu``
-UNet-family model on its plain path and returns torch tensors under the
-port's names, and back. For the plain UNet this is the inverse of
-``cvssl_tpu/models/torch_convert.py::convert_unet_checkpoint`` (the original
-torch names). The original torch tree names none of the variants, so their
-names are SSL4MIS's: ``encoder``, ``main_decoder``, ``aux_decoder1..3``
-(``unet_cct``); ``decoder.up1..4``, ``decoder.out_conv``,
-``decoder.out_conv_dp1..3`` (``unet_ds``, ``unet_urpc``, ``unet_feature``).
+UNet-family model on its plain path, or of its ``FCDiscriminator``, and
+returns torch tensors under the port's names, and back. For the plain UNet
+this is the inverse of ``cvssl_tpu/models/torch_convert.py::
+convert_unet_checkpoint`` (the original torch names). The original torch
+tree names none of the variants, so their names are SSL4MIS's:
+``encoder``, ``main_decoder``, ``aux_decoder1..3`` (``unet_cct``);
+``decoder.up1..4``, ``decoder.out_conv``, ``decoder.out_conv_dp1..3``
+(``unet_ds``, ``unet_urpc``, ``unet_feature``).
 
 Flax names compact submodules by type in call order: ``UNetCCT``'s
 ``Decoder_0..3`` are main, aux1, aux2, aux3; ``_MultiScaleDecoder_0``'s
 ``Conv_0..3`` are the dp3, dp2, dp1 and dp0 heads; ``UNetFeature`` has its
 four ``UpBlock``s and its ``Conv_0`` at the top level.
+
+The discriminator keeps the original torch names (``conv0``..``conv4``,
+``classifier``); Flax's ``Conv_0``/``Conv_1`` take the softmax map and the
+image, and its ``Dense_0`` the NHWC flatten, (h, w, c) order, where the
+torch classifier takes the NCHW flatten: its rows are reordered, the pooled
+map taken square as in ``cvssl_tpu/models/torch_convert.py::
+convert_discriminator2d_checkpoint``.
 
 Conv kernels go from (kh, kw, in, out) to (out, in, kh, kw).
 """
@@ -24,7 +32,9 @@ import numpy as np
 import torch
 
 # (port key, flax collection, flax path, kind); kind "kernel" transposes,
-# "count" is BatchNorm's num_batches_tracked, which flax does not keep
+# "count" is BatchNorm's num_batches_tracked, which flax does not keep,
+# "dense:<port key>" is a Dense kernel over an NHWC flatten whose channel
+# count is the length of that port tensor
 Leaf = Tuple[str, str, Tuple[str, ...], str]
 
 
@@ -76,9 +86,28 @@ def _multiscale_decoder(port: str, path: Tuple[str, ...]) -> List[Leaf]:
     return out
 
 
+def _discriminator() -> List[Leaf]:
+    out = [leaf for i in range(5) for leaf in _conv(f"conv{i}",
+                                                    (f"Conv_{i}",))]
+    return out + [("classifier.weight", "params", ("Dense_0", "kernel"),
+                   "dense:conv4.bias"),
+                  ("classifier.bias", "params", ("Dense_0", "bias"),
+                   "plain")]
+
+
+def _pooled_side(n_in: int, channels: int) -> int:
+    side = int(round((n_in // channels) ** 0.5))
+    if side * side * channels != n_in:
+        raise ValueError(f"a Dense of {n_in} inputs over {channels} channels "
+                         "is not a square pooled map")
+    return side
+
+
 def leaves(net_type: str) -> List[Leaf]:
     """Every tensor of ``net_type``'s ``state_dict`` with its place in the
     flax trees."""
+    if net_type == "discriminator":
+        return _discriminator()
     enc = _encoder("encoder", ("Encoder_0",))
     if net_type == "unet":
         return enc + _decoder("decoder", ("Decoder_0",))
@@ -113,7 +142,14 @@ def state_dict_from_flax(net_type: str, params: Mapping,
             sd[key] = np.zeros((), np.int64)
             continue
         v = np.asarray(_get(trees[coll], path))
-        sd[key] = np.transpose(v, (3, 2, 0, 1)) if kind == "kernel" else v
+        if kind == "kernel":
+            v = np.transpose(v, (3, 2, 0, 1))
+        elif kind.startswith("dense:"):        # (h*w*c, out) -> (out, c*h*w)
+            c = sd[kind[6:]].shape[0]
+            s = _pooled_side(v.shape[0], c)
+            v = v.reshape(s, s, c, -1).transpose(3, 2, 0, 1).reshape(
+                v.shape[1], -1)
+        sd[key] = v
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
 
 
@@ -129,6 +165,11 @@ def flax_from_state_dict(net_type: str, state_dict: Mapping
         v = np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
         if kind == "kernel":
             v = np.transpose(v, (2, 3, 1, 0))
+        elif kind.startswith("dense:"):        # (out, c*h*w) -> (h*w*c, out)
+            c = state_dict[kind[6:]].shape[0]
+            s = _pooled_side(v.shape[1], c)
+            v = v.reshape(-1, c, s, s).transpose(2, 3, 1, 0).reshape(
+                -1, v.shape[0])
         node = trees[coll]
         for k in path[:-1]:
             node = node.setdefault(k, {})

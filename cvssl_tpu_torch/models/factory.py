@@ -1,12 +1,12 @@
 """2D model registry (port of ``cvssl_tpu/models/factory.py``; the UNet
-family so far)."""
+family and the discriminator so far)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from torch import nn
 
-from cvssl_tpu_torch.models import unet
+from cvssl_tpu_torch.models import discriminator, unet
 
 _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "unet": lambda in_chns, class_num, **kw: unet.UNet(
@@ -19,6 +19,10 @@ _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
         in_chns=in_chns, num_classes=class_num, **kw),
     "unet_feature": lambda in_chns, class_num, **kw: unet.UNetFeature(
         in_chns=in_chns, num_classes=class_num, **kw),
+    # takes patch_size: its classifier's width follows the input size
+    "discriminator": lambda in_chns, class_num, **kw:
+        discriminator.FCDiscriminator(num_classes=class_num, in_chns=in_chns,
+                                      **kw),
 }
 
 

@@ -1,4 +1,4 @@
-"""Optimizer and LR schedule (port of ``cvssl_tpu/ops/schedules.py``)."""
+"""Optimizers and LR schedule (port of ``cvssl_tpu/ops/schedules.py``)."""
 from __future__ import annotations
 
 from typing import Callable, Iterable
@@ -39,6 +39,26 @@ class ReferenceSGD(torch.optim.SGD):
         lr = self.schedule(self.count)
         for group in self.param_groups:
             group["lr"] = lr
+        loss = super().step(closure)
+        self.count += 1
+        return loss
+
+
+class DiscriminatorAdam(torch.optim.Adam):
+    """Adam(betas=(0.9, 0.99), eps=1e-8) at a constant learning rate with no
+    weight decay, for the adversarial methods' discriminator
+    (``train_adversarial_network_2D.py:123``). ``count`` is the number of
+    updates applied, as ``ReferenceSGD``'s. JAX:
+    ``schedules.discriminator_adam`` (``optax.adam``; torch's Adam takes
+    the same bias-corrected step)."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-4,
+                 betas=(0.9, 0.99)):
+        super().__init__(params, lr=lr, betas=betas, eps=1e-8)
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
         loss = super().step(closure)
         self.count += 1
         return loss

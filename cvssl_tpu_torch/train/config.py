@@ -117,7 +117,8 @@ class TrainConfig:
 
     def compute_dtype(self, device) -> torch.dtype:
         """Resolve ``dtype`` for ``device``: "auto" is bfloat16 on CUDA and
-        float32 elsewhere."""
+        float32 elsewhere. Only the nets of ``COMPUTE_DTYPE_NETS`` compute
+        in it (:meth:`model_dtype`)."""
         dt = self.dtype
         if dt == "auto":
             dt = "bfloat16" if torch.device(device).type == "cuda" \
@@ -125,6 +126,20 @@ class TrainConfig:
         if dt not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported dtype {self.dtype!r}")
         return getattr(torch, dt)
+
+    # the nets whose JAX module takes the compute dtype
+    # (``cvssl_tpu.train.config.TrainConfig.model_kwargs``); JAX's
+    # ``unet_3D`` and ``unet_3D_dv_semi`` join them with the 3D port
+    COMPUTE_DTYPE_NETS = ("unet",)
+
+    def model_dtype(self, net_type: str, device) -> torch.dtype:
+        """The dtype ``net_type`` computes in on ``device``: the resolved
+        compute dtype for the plain UNet, float32 for every other net (the
+        UNet variants and the discriminator have no dtype field in JAX, so
+        they run in float32 whatever ``dtype`` says)."""
+        if net_type in self.COMPUTE_DTYPE_NETS:
+            return self.compute_dtype(device)
+        return torch.float32
 
     def fused_loss_on(self) -> bool:
         """The fused CE+Dice kernel is always on in the port."""

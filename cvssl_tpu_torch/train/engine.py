@@ -4,18 +4,22 @@ in for ``train_steps_scan``, the eval-mode predictor, 2D validation, and the
 ``fit`` loop with its validation and checkpoint cadence).
 
 One step: zero the gradients, run the method's loss through a ``StepCtx``
-(student and teacher forwards in train mode, under bfloat16 autocast when
-the compute dtype is bfloat16), backward, SGD with the poly LR of the
-optimizer's own update count, then the EMA of the teacher's parameters
-with the decay of the step before its increment (``engine.py:236``).
+(student and teacher forwards in train mode, each model under bfloat16
+autocast when its compute dtype is bfloat16), backward, SGD with the poly
+LR of the optimizer's own update count, then the EMA of the teacher's
+parameters with the decay of the step before its increment
+(``engine.py:236``). Adversarial methods run a second phase before any
+optimizer steps (JAX ``engine.py:146-229``).
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; on a
 machine without CUDA, ``Engine(cfg)`` raises.
 
 Numerics on the card: float32 matmuls and convolutions run in full float32
 (TF32 off for both cuBLAS and cuDNN, set explicitly, since cuDNN's default is
-TF32); under ``dtype="auto"`` the convolutions run in bfloat16 through
-autocast, with float32 parameters, BatchNorm statistics and losses.
+TF32); under ``dtype="auto"`` the plain UNet's convolutions run in bfloat16
+through autocast, with float32 parameters, BatchNorm statistics and losses;
+the UNet variants and the discriminator run in float32, as in JAX
+(``TrainConfig.model_dtype``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from cvssl_tpu_torch.data.datasets import SliceDataset
+from cvssl_tpu_torch.data.device_store import STORE_MODES, DeviceSliceStore
 from cvssl_tpu_torch.data.sampler import (ShuffleBatchSampler,
                                           TwoStreamBatchSampler)
 from cvssl_tpu_torch.eval import val2d
@@ -53,7 +58,10 @@ class Engine:
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.method = method or get_method(cfg.method, cfg)
-        self.compute_dtype = cfg.compute_dtype(self.device)
+        # the compute dtype of each model slot (teachers share their
+        # student's)
+        self.model_dtypes = {n: cfg.model_dtype(t, self.device)
+                             for n, t in self.method.net_types().items()}
         self.store = None  # optional device-resident data store
         # on the card the val set is uploaded once (key: id of the dataset,
         # patch size; the entry holds the dataset, so the id stays its own)
@@ -85,14 +93,35 @@ class Engine:
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, batch: dict):
         """One step on a batch already on the device: {"image": (B, 1, H, W)
-        float32, "label": (B, H, W) int}. Updates ``state`` in place and
-        returns (state, metrics); metrics are device tensors (no sync)."""
+        float32, "label": (B, H, W) int} (and the ``weak_strong`` store's
+        keys). Updates ``state`` in place and returns (state, metrics);
+        metrics are device tensors (no sync).
+
+        With ``adversarial_models``, two phases before any optimizer step,
+        as JAX's step: the generator phase (``loss``) with those models
+        frozen, so gradients flow through them into the segmenter but none
+        is kept for their own parameters (JAX differentiates the main
+        parameters only); then the discriminator phase (``loss_d``), which
+        sees the segmenter's weights before the update and its BatchNorm
+        running statistics after the generator phase's forwards."""
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
         ctx = StepCtx(self.cfg, state.models, state.teachers,
-                      state.generator, state.step, self.compute_dtype)
-        loss, metrics = self.method.loss(ctx, batch)
-        loss.backward()
+                      state.generator, state.step, self.model_dtypes)
+        adversarial = [state.models[n]
+                       for n in self.method.adversarial_models]
+        for m in adversarial:
+            m.requires_grad_(False)
+        try:
+            loss, metrics = self.method.loss(ctx, batch)
+            loss.backward()
+        finally:
+            for m in adversarial:
+                m.requires_grad_(True)
+        if adversarial:
+            d_loss, d_metrics = self.method.loss_d(ctx, batch)
+            d_loss.backward()
+            metrics = {**metrics, **d_metrics, "loss_d": d_loss}
         for opt in state.optimizers.values():
             opt.step()
         decay = ema_decay_schedule(state.step, self.cfg.ema_decay)
@@ -141,16 +170,12 @@ class Engine:
         eval-mode forward (running BatchNorm statistics, no dropout)."""
         model = (state.teachers if teacher else state.models)[name]
         ctx = StepCtx(self.cfg, {name: model}, {}, None, state.step,
-                      self.compute_dtype)
+                      self.model_dtypes)
 
         def predict(x: torch.Tensor) -> torch.Tensor:
-            model.eval()
-            try:
-                with torch.no_grad():
-                    out = self.method.primary_logits(
-                        ctx.forward(name, x.to(self.device)))
-            finally:
-                model.train()
+            with torch.no_grad():
+                out = self.method.primary_logits(
+                    ctx.forward(name, x.to(self.device), train=False))
             return out.float().argmax(dim=1).to(torch.uint8)
         return predict
 
@@ -242,7 +267,7 @@ def _check_ported(cfg: TrainConfig, method: Method):
     running something else."""
     if cfg.dim != 2:
         raise NotImplementedError("dim=3: the 3D path is not ported yet")
-    if method.transform != "default":
+    if method.transform not in STORE_MODES:
         raise NotImplementedError(
             f"method {cfg.method!r} needs the {method.transform!r} "
             "augmentation, which is not ported yet")
@@ -287,9 +312,9 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
 
     train_ds, sampler, val_ds = data or build_2d_data(
         cfg, engine.method.supervised_only)
-    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
     engine.attach_store(DeviceSliceStore(train_ds, cfg.patch_size,
-                                         device=engine.device))
+                                         device=engine.device,
+                                         mode=engine.method.transform))
     index_stream = sampler.epochs()
     logger.info("device-resident dataset: %d samples on %s", len(train_ds),
                 engine.device)

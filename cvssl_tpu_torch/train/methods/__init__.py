@@ -10,3 +10,6 @@ from cvssl_tpu_torch.train.methods import co_training  # noqa: F401
 from cvssl_tpu_torch.train.methods import cps  # noqa: F401
 from cvssl_tpu_torch.train.methods import cct  # noqa: F401
 from cvssl_tpu_torch.train.methods import urpc  # noqa: F401
+from cvssl_tpu_torch.train.methods import fixmatch  # noqa: F401
+from cvssl_tpu_torch.train.methods import adversarial  # noqa: F401
+from cvssl_tpu_torch.train.methods import exam  # noqa: F401

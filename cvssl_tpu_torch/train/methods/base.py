@@ -2,7 +2,9 @@
 
 A Method is one reference ``train_*.py`` loss block: the models to build,
 their optimizers, and ``loss(ctx, batch)``. Stepping, EMA and BatchNorm
-state live once in the engine.
+state live once in the engine. Adversarial methods also name their
+``adversarial_models`` and give ``loss_d``, the discriminator phase the
+engine runs after the generator phase.
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ class Method:
     name = "base"
     model_names: Tuple[str, ...] = ("model",)
     teacher_names: Tuple[str, ...] = ()      # models that get an EMA teacher
+    # models frozen in ``loss`` and trained by ``loss_d`` (discriminators)
+    adversarial_models: Tuple[str, ...] = ()
     transform: str = "default"               # augmentation of the store
     supervised_only: bool = False            # labeled-only dataset, no 2-stream
 
@@ -58,8 +62,13 @@ class Method:
         return net_factory(net_type, self.cfg.in_channels,
                            self.cfg.num_classes)
 
+    def net_types(self) -> Dict[str, str]:
+        """The registered net type of each model slot; it also decides the
+        slot's compute dtype (``TrainConfig.model_dtype``)."""
+        return {"model": self.cfg.model}
+
     def build_models(self) -> Dict[str, nn.Module]:
-        return {"model": self._factory(self.cfg.model)}
+        return {n: self._factory(t) for n, t in self.net_types().items()}
 
     def optimizers(self, models: Dict[str, nn.Module]
                    ) -> Dict[str, torch.optim.Optimizer]:
@@ -78,6 +87,11 @@ class Method:
     # -- the strategy -----------------------------------------------------
     def loss(self, ctx, batch):
         """Return (total_loss, metrics_dict). Override per strategy."""
+        raise NotImplementedError
+
+    def loss_d(self, ctx, batch):
+        """The discriminator phase of an adversarial method: (loss,
+        metrics), differentiated w.r.t. ``adversarial_models`` only."""
         raise NotImplementedError
 
     def primary_logits(self, out):

@@ -12,8 +12,8 @@ from cvssl_tpu_torch.train.methods.base import Method, register_method
 
 @register_method("cct")
 class CrossConsistencyTraining(Method):
-    def build_models(self):
-        return {"model": self._factory("unet_cct")}
+    def net_types(self):
+        return {"model": "unet_cct"}
 
     def loss(self, ctx, batch):
         cfg = self.cfg

@@ -17,9 +17,8 @@ class CrossPseudoSupervision(Method):
 
     model_names = ("model1", "model2")
 
-    def build_models(self):
-        return {"model1": self._factory(self.cfg.model),
-                "model2": self._factory(self.cfg.model)}
+    def net_types(self):
+        return {"model1": self.cfg.model, "model2": self.cfg.model}
 
     def _pseudo_ce(self, logits_unl, pseudo):
         return losses.cross_entropy(logits_unl, pseudo)

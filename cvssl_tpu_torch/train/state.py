@@ -29,39 +29,56 @@ class TrainState:
 class StepCtx:
     """Forward helper for one step.
 
-    Student and teacher forwards both run in train mode: BatchNorm
-    normalises with batch statistics and the running buffers of both update
-    (torch buffers self-update during the teacher's train-mode forward,
-    reference ``train_mean_teacher_2D.py:214``). Dropout bytes and method
-    noise come from the state's generator."""
+    Student and teacher forwards both run in train mode unless asked
+    otherwise: BatchNorm normalises with batch statistics and the running
+    buffers of both update (torch buffers self-update during the teacher's
+    train-mode forward, reference ``train_mean_teacher_2D.py:214``). Dropout
+    bytes and method noise come from the state's generator. Each model
+    computes in its own dtype (``dtypes``, by model name, float32 where
+    absent): bfloat16 runs under autocast, as ``TrainConfig.model_dtype``
+    gives it."""
 
     def __init__(self, cfg, models: Dict[str, nn.Module],
                  teachers: Dict[str, nn.Module],
                  generator: Optional[torch.Generator], step: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 dtypes: Optional[Dict[str, torch.dtype]] = None):
         self.cfg = cfg
         self.models = models
         self.teachers = teachers
         self.generator = generator
         self.step = step
-        self.compute_dtype = compute_dtype
+        self.dtypes = dtypes or {}
 
-    def _autocast(self, x: torch.Tensor):
-        if self.compute_dtype == torch.float32:
+    def _autocast(self, name: str, x: torch.Tensor):
+        dtype = self.dtypes.get(name, torch.float32)
+        if dtype == torch.float32:
             return contextlib.nullcontext()
-        return torch.autocast(x.device.type, dtype=self.compute_dtype)
+        return torch.autocast(x.device.type, dtype=dtype)
 
-    def forward(self, name: str, x: torch.Tensor):
-        """Student forward (train mode; autograd on)."""
+    def forward(self, name: str, x: torch.Tensor, train: bool = True,
+                extra_args=()):
+        """Student forward (autograd on). ``train=False`` runs the module in
+        eval mode (running BatchNorm statistics, no dropout, no buffer
+        update) and puts it back in the mode it was in. ``extra_args`` go
+        after ``x`` (the discriminator's image). JAX:
+        ``StepCtx.forward``."""
         model = self.models[name]
-        with self._autocast(x):
-            return model(x, self.generator)
+        if train:
+            with self._autocast(name, x):
+                return model(x, *extra_args, generator=self.generator)
+        was_training = model.training
+        model.eval()
+        try:
+            with self._autocast(name, x):
+                return model(x, *extra_args)
+        finally:
+            model.train(was_training)
 
     def forward_teacher(self, name: str, x: torch.Tensor):
         """EMA-teacher forward under no_grad, in train mode like the
         reference."""
         model = self.teachers[name]
-        with torch.no_grad(), self._autocast(x):
+        with torch.no_grad(), self._autocast(name, x):
             return model(x, self.generator)
 
     def forward_teacher_scan(self, name: str, x_groups: torch.Tensor):
@@ -74,7 +91,7 @@ class StepCtx:
         bytes. Returns the logits stacked on a leading group axis. JAX:
         ``StepCtx.forward_teacher_scan`` (a ``lax.scan``)."""
         model = self.teachers[name]
-        with torch.no_grad(), self._autocast(x_groups):
+        with torch.no_grad(), self._autocast(name, x_groups):
             return torch.stack([model(xg, self.generator) for xg in x_groups])
 
     # -- draws, all from the step's generator (a resume restores it) --------

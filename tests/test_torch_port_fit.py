@@ -445,7 +445,7 @@ def test_fit_raises_for_what_is_not_ported(trees, tmp_path, change):
     cfg = _fit_cfg(troot, tmp_path, **kw)
     method = _NarrowMT(cfg)
     if change == "transform":
-        method.transform = "weak_strong"
+        method.transform = "cta"      # the host CTAugment path
     engine = TEngine(cfg, method=method, device="cpu")
     with pytest.raises(NotImplementedError):
         fit(cfg, engine=engine, max_steps=1)
@@ -574,11 +574,14 @@ def test_fit_cps_writes_the_dual_model_names(trees, tmp_path):
     assert full["state"]["teachers"] == {}
 
 
-@pytest.mark.parametrize("method", ["uamt", "cps"])
+@pytest.mark.parametrize("method", ["uamt", "cps", "adversarial",
+                                    "fixmatch"])
 def test_fit_resume_is_bit_equal_for(trees, tmp_path, method):
     """uamt (the most draws from the step's generator: noise, dropout bytes
-    of five passes) and cps (two models, two optimizers): stopped at 2 and
-    resumed to 4 == 4 in one run, bit for bit."""
+    of five passes), cps (two models, two optimizers), adversarial (the
+    discriminator, its channel dropout and its Adam) and fixmatch (the
+    weak_strong store's draws): stopped at 2 and resumed to 4 == 4 in one
+    run, bit for bit, every optimizer's state and count included."""
     _, troot = trees
     straight = _fit_method(_fit_cfg(troot, tmp_path / "a", method=method), 4)
     cfg = _fit_cfg(troot, tmp_path / "b", method=method)
@@ -598,16 +601,21 @@ def test_fit_resume_is_bit_equal_for(trees, tmp_path, method):
     for n, oa in ta["optimizers"].items():
         ob = tb["optimizers"][n]
         assert oa["count"] == ob["count"] == 4
+        assert oa["state"]["state"]
         for i, st in oa["state"]["state"].items():
-            assert torch.equal(st["momentum_buffer"],
-                               ob["state"]["state"][i]["momentum_buffer"])
+            assert set(st) == set(ob["state"]["state"][i])
+            for k, v in st.items():       # SGD momentum; Adam's moments
+                assert torch.equal(v, ob["state"]["state"][i][k]), (n, k)
     assert torch.equal(ta["generator"], tb["generator"])
 
 
-@pytest.mark.parametrize("method", ["cps", "uamt"])
+@pytest.mark.parametrize("method", ["cps", "uamt", "adversarial",
+                                    "exam_student_teacher", "fixmatch"])
 def test_cli_trains_the_2d_methods_on_the_cpu(trees, tmp_path, method):
     """Full-width models through the CLI: the method runs, and the
-    periodic files carry its slots' names."""
+    periodic files carry its slots' names; the discriminator of the
+    adversarial methods is in the full state only (JAX validates and
+    best-checkpoints ``model`` alone)."""
     _, troot = trees
     result = tcli.main(["--root_path", troot, "--exp", "cli",
                         "--method", method, "--max_iterations", "2",
@@ -623,5 +631,38 @@ def test_cli_trains_the_2d_methods_on_the_cpu(trees, tmp_path, method):
     if method == "cps":
         assert {"model1_iter_2.ckpt", "model2_iter_2.ckpt"} <= files
         assert not any("ema" in f for f in files)
+    elif method == "adversarial":
+        assert "iter_2.ckpt" in files
+        assert not any("ema" in f for f in files)
     else:
         assert {"iter_2.ckpt", "ema_model_iter_2.ckpt"} <= files
+    if method in ("adversarial", "exam_student_teacher"):
+        assert not any("dan" in f for f in files), files
+        assert set(result["best_dice"]) == {"model"}
+        full = ckpt.load_weights(os.path.join(snap, "model_iter_2.ckpt"))
+        assert set(full["state"]["models"]) == {"model", "dan"}
+        assert full["state"]["optimizers"]["dan"]["count"] == 2
+
+
+def test_fit_fixmatch_trains_from_the_weak_strong_store(trees, tmp_path):
+    """fit builds the store in the method's mode, and fixmatch's batches
+    carry the weak and strong views; the EMA teacher's files are written
+    as for the mean teacher."""
+    _, troot = trees
+    cfg = _fit_cfg(troot, tmp_path, method="fixmatch", patch_size=(32, 32))
+    engine = TEngine(cfg, method=_narrow_method(cfg), device="cpu")
+    keys = []
+    loss = engine.method.loss
+
+    def spy(ctx, batch):
+        keys.append(set(batch))
+        return loss(ctx, batch)
+    engine.method.loss = spy
+    result = fit(cfg, engine=engine, max_steps=2)
+    assert result["iterations"] == 2
+    assert engine.store.mode == "weak_strong"
+    assert keys == [{"image", "image_weak", "image_strong", "label_aug",
+                     "label", "idx"}] * 2
+    files = set(os.listdir(cfg.snapshot_path()))
+    assert {"iter_2.ckpt", "ema_model_iter_2.ckpt",
+            "model_iter_2.ckpt"} <= files
