@@ -12,7 +12,8 @@ the run with a non-zero exit:
    and whether ``h5py`` is installed (the fit phase does not need it);
 2. kernels against their plain version: the fused CE+Dice forward and
    backward (``csrc/fused_ce_dice.cu``) on the card at the main-path shape
-   (12, 4, 256, 256), a ragged (3, 4, 37, 41), the main shape at an
+   (12, 4, 256, 256), the CNN+ViT methods' (8, 4, 224, 224), a ragged
+   (3, 4, 37, 41), the main shape at an
    unaligned storage offset, and 2 and 16 classes (3, 2, 37, 41) and
    (2, 16, 64, 64); f32 and bf16 logits, int32 and uint8 labels,
    cotangents 0.3 / 1.7, held against ``ce_dice_plain`` run on the card in
@@ -50,6 +51,16 @@ the run with a non-zero exit:
    sync debug mode "error" if the mean-teacher step made no synchronising
    call. uamt's output conv is scaled by 8 so that its MC teacher is sure
    somewhere;
+5b. north-star config 4's CNN+ViT methods, cross_teaching, cnn_meet_vit
+   and tripleview: a UNet and SwinUnet-tiny (27,168,420 parameters; two
+   UNets for tripleview) at full width, batch 16 = 8 + 8 at 224^2, dtype
+   auto (bf16 for both), from their own store of the same synthetic slices
+   at 224^2; the same checks and numbers as phase 5 for each, kernel #1
+   launched 2, 2 and 3 times a step, every model (and cnn_meet_vit's
+   teacher) moved, the Dice pseudo-supervision after step 1000 recomputed
+   from the other model's argmax with a plain float64 Dice; then the
+   SwinUnet's predictions and its eval forward in float32 on the card
+   against the CPU;
 6. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
    three against the plain version run on the card in float64 at
    (24, 256, 256, 16) f32 and bf16 input (tile_h 32), at the JAX tests'
@@ -78,9 +89,12 @@ the run with a non-zero exit:
    ``unet_best_model1.ckpt``, no EMA files), two launches of each kernel an
    iteration; then ``fit`` of fixmatch, 100 iterations with one
    validation and one checkpoint, through the store's ``weak_strong``
-   mode;
+   mode; then ``fit`` of cross_teaching at config 4's size on the same
+   train slices and val volumes at 224^2, 200 iterations with val and
+   checkpoints every 100: both slots validated (model2 at ``patch_size2``),
+   the dual-model files, two launches of each kernel an iteration;
 8. one JSON line of the kernels (kernel #1's with its launches in each
-   method's run of phase 5), then the result line
+   method's run of phases 5 and 5b), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -132,7 +146,8 @@ METHOD_LAUNCHES = {"uamt": 1, "ict": 1, "deep_co_training": 1, "cps": 2,
                    "exam_student_teacher": 1}
 METHOD_STEPS = 5               # from step 0, and again from step 1000
 MODEL_PARAMS = {"unet": 1_813_764, "unet_cct": 3_713_664,
-                "unet_urpc": 1_821_840, "discriminator": 2_762_754}
+                "unet_urpc": 1_821_840, "discriminator": 2_762_754,
+                "swin_unet": 27_168_420}
 # the metric that carries each method's unsupervised term
 CONSISTENCY_KEY = {"fixmatch": "unsup_loss"}
 # uamt's output conv (student and teacher) scaled up, so that the MC
@@ -141,6 +156,23 @@ CONSISTENCY_KEY = {"fixmatch": "unsup_loss"}
 # is above the threshold)
 UAMT_LOGIT_SCALE = 8.0
 CPS_FIT_STEPS, CPS_FIT_EVERY = 200, 100
+# north-star config 4 (bench.py:176-178): a UNet and SwinUnet-tiny, batch
+# 16 = 8 labeled + 8 unlabeled at 224^2; kernel #1's launches a step of
+# each CNN+ViT method (one per model, forward and backward)
+VIT_BATCH, VIT_LABELED_BS, VIT_PATCH = 16, 8, 224
+VIT_SHAPE = (VIT_LABELED_BS, CLASSES, VIT_PATCH, VIT_PATCH)
+VIT_METHOD_LAUNCHES = {"cross_teaching": 2, "cnn_meet_vit": 2,
+                       "tripleview": 3}
+VIT_FIT_STEPS, VIT_FIT_EVERY = 200, 100
+# each method's pseudo-supervision term, and its calls in a step, in
+# order: (i, j) is model i's input with model j's argmax as labels
+PSEUDO_TERM = {"cps": "_pseudo_ce", "cross_teaching": "_pseudo_dice",
+               "cnn_meet_vit": "_pseudo_dice", "tripleview": "_pseudo_dice"}
+PSEUDO_PAIRS = {"cps": ((0, 1), (1, 0)),
+                "cross_teaching": ((0, 1), (1, 0)),
+                "cnn_meet_vit": ((0, 1), (1, 0)),
+                "tripleview": ((0, 1), (0, 2), (1, 0), (1, 2), (2, 0),
+                               (2, 1))}
 FIXMATCH_FIT_STEPS = 100       # one validation, one checkpoint
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
@@ -187,13 +219,14 @@ class BlobSlices:
         return {"image": image, "label": label}
 
 
-def blob_volumes(n=FIT_VAL_VOLUMES, slices=FIT_VAL_SLICES, seed=10_000):
-    """Uniform val volumes (slices, 256, 256) of blob slices."""
+def blob_volumes(n=FIT_VAL_VOLUMES, slices=FIT_VAL_SLICES, seed=10_000,
+                 side=PATCH):
+    """Uniform val volumes (slices, side, side) of blob slices."""
     from cvssl_tpu_torch.data.synthetic import blob_image
     rng = np.random.default_rng(seed)
     vols = []
     for _ in range(n):
-        pairs = [blob_image(rng, (PATCH, PATCH), CLASSES)
+        pairs = [blob_image(rng, (side, side), CLASSES)
                  for _ in range(slices)]
         vols.append({"image": np.stack([p[0] for p in pairs]),
                      "label": np.stack([p[1] for p in pairs])})
@@ -287,7 +320,8 @@ def check_kernels(device):
     err = {"ce_dice_fwd": 0.0, "ce_dice_bwd": 0.0}
     f32, bf16, i32, u8 = (torch.float32, torch.bfloat16, torch.int32,
                           torch.uint8)
-    cases = [(MAIN_SHAPE, f32, i32, False), (MAIN_SHAPE, bf16, i32, False)]
+    cases = [(MAIN_SHAPE, f32, i32, False), (MAIN_SHAPE, bf16, i32, False),
+             (VIT_SHAPE, f32, i32, False), (VIT_SHAPE, bf16, i32, False)]
     cases += [(RAGGED_SHAPE, dt, lt, False) for dt in (f32, bf16)
               for lt in (i32, u8)]
     cases += [(MAIN_SHAPE, f32, i32, True), (MAIN_SHAPE, bf16, u8, True)]
@@ -632,13 +666,14 @@ def profile_steps(engine, state, stream, step_s, steps=3, top=15):
     return total_us / steps / 1e3
 
 
-def two_stream(seed):
-    """The step loop's sampler: 12 labeled + 12 unlabeled a batch."""
+def two_stream(seed, batch=BATCH, labeled_bs=LABELED_BS):
+    """The step loop's sampler: 12 labeled + 12 unlabeled a batch (the ViT
+    phase's: 8 + 8)."""
     from cvssl_tpu_torch.data.sampler import TwoStreamBatchSampler
     return TwoStreamBatchSampler(
         list(range(ACDC_LABELED_SLICES)),
         list(range(ACDC_LABELED_SLICES, ACDC_TRAIN_SLICES)),
-        BATCH, BATCH - LABELED_BS, rng=np.random.default_rng(seed))
+        batch, batch - labeled_bs, rng=np.random.default_rng(seed))
 
 
 def sync_sites(fn):
@@ -676,27 +711,32 @@ def sync_sites(fn):
 
 
 def method_config(method, **kw):
+    """The smoke's configuration of ``method`` (batch 24 = 12 + 12 at
+    256^2, dtype auto); ``kw`` overrides."""
     from cvssl_tpu_torch.train.config import TrainConfig
-    return TrainConfig(method=method, model="unet", num_classes=CLASSES,
-                       batch_size=BATCH, labeled_bs=LABELED_BS,
-                       patch_size=(PATCH, PATCH),
-                       labeled_slices_override=ACDC_LABELED_SLICES, **kw)
+    base = dict(method=method, model="unet", num_classes=CLASSES,
+                batch_size=BATCH, labeled_bs=LABELED_BS,
+                patch_size=(PATCH, PATCH),
+                labeled_slices_override=ACDC_LABELED_SLICES)
+    return TrainConfig(**{**base, **kw})
+
+
+def vit_config(method, **kw):
+    """North-star config 4's: a UNet and SwinUnet-tiny, batch 16 = 8 + 8 at
+    224^2."""
+    return method_config(method, model2="swin_unet", batch_size=VIT_BATCH,
+                         labeled_bs=VIT_LABELED_BS,
+                         patch_size=(VIT_PATCH, VIT_PATCH), **kw)
 
 
 def run_other_methods(device, card, store):
     """Phase 5: the other UNet-family 2D methods at full width on the
-    step loop's store. For each: its models' parameter counts; 5 steps from
-    step 0 and 5 from step 1000, kernel #1 launched by the method's count
-    per step, forward and backward; finite losses, a live consistency term
-    after step 1000, teachers (uamt, ict) and both models (cps) moved; then
-    slices/s and peak memory over 30 steps; a short profile of the step.
-    Every method's checked steps run under
-    ``torch.cuda.set_sync_debug_mode("error")`` if the mean-teacher step
-    makes no synchronising call. cps's pseudo-supervision terms are read
-    through ``_pseudo_ce`` in its checked steps and recomputed here."""
+    step loop's store, each through :func:`drive_method`; first whether the
+    mean-teacher step makes a synchronising call (then no method's checked
+    steps run under ``torch.cuda.set_sync_debug_mode("error")``). Returns
+    the methods' results and that verdict."""
     import torch
     from cvssl_tpu_torch.data.device_store import DeviceSliceStore
-    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
     from cvssl_tpu_torch.train.engine import Engine
 
     stream = two_stream(1).epochs()
@@ -725,146 +765,223 @@ def run_other_methods(device, card, store):
         else:
             engine.attach_store(store)
         state = engine.init_state()
-        counts = {}
-        for slot, model in state.models.items():
-            n = sum(p.numel() for p in model.parameters())
-            kind = engine.method.net_types()[slot]
-            if n != MODEL_PARAMS[kind]:
-                raise SystemExit(f"{method} {slot}: {n} parameters, not "
-                                 f"{MODEL_PARAMS[kind]} ({kind})")
-            counts[slot] = n
         if method == "uamt":
             for m in (state.models["model"], state.teachers["model"]):
                 with torch.no_grad():
                     m.decoder.out_conv.weight.mul_(UAMT_LOGIT_SCALE)
                     m.decoder.out_conv.bias.mul_(UAMT_LOGIT_SCALE)
-        watched = dict(state.teachers or state.models)
-        watched.update({n: state.models[n]
-                        for n in engine.method.adversarial_models})
-        start_params = {n: [p.detach().clone() for p in m.parameters()]
-                        for n, m in watched.items()}
-        pseudo = spy_pseudo_ce(engine.method) if method == "cps" else None
+        results[method] = drive_method(engine, state, stream, per_step,
+                                       strict, card, BATCH)
+        del engine, state
+        torch.cuda.empty_cache()
+    return results, strict
 
-        fcd.reset_launches()
-        vals = []
-        for start in (0, 1000):
-            state.step = start
-            for _ in range(METHOD_STEPS):
-                before = dict(fcd.LAUNCHES)
-                if strict:
-                    torch.cuda.set_sync_debug_mode("error")
-                try:
-                    state, metrics = engine.train_steps(state,
-                                                        [next(stream)])
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                for k in before:
-                    if fcd.LAUNCHES[k] != before[k] + per_step:
-                        raise SystemExit(
-                            f"{method} {k}: {before[k]} -> "
-                            f"{fcd.LAUNCHES[k]} in one step, not "
-                            f"+{per_step}")
-                vals.append(metrics)
-        torch.cuda.synchronize()
-        launches = dict(fcd.LAUNCHES)
-        vals = [{k: float(v) for k, v in m.items()} for m in vals]
-        if not all(math.isfinite(x) for v in vals for x in v.values()):
-            raise SystemExit(f"{method}: non-finite metrics {vals}")
-        late = vals[METHOD_STEPS:]
-        cons_key = CONSISTENCY_KEY.get(method, "consistency_loss")
-        if pseudo is not None:
-            del engine.method._pseudo_ce
-            if len(pseudo) != 4 * METHOD_STEPS:
-                raise SystemExit(f"cps: {len(pseudo)} pseudo-supervision "
-                                 f"terms in {2 * METHOD_STEPS} steps")
-            cons_key = "pseudo_supervision"
-            for i, v in enumerate(late, METHOD_STEPS):
-                v[cons_key] = check_pseudo_ce(pseudo[2 * i:2 * i + 2], v)
-            del pseudo
-        if not all(v[cons_key] > 0.0 for v in late):
-            raise SystemExit(f"{method}: {cons_key} not > 0 after step "
-                             f"1000: {[v[cons_key] for v in late]}")
-        for n, m in watched.items():
-            if all(torch.equal(a, b) for a, b in
-                   zip(start_params[n], m.parameters())):
-                raise SystemExit(f"{method}: {n} did not move")
 
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(MEASURE_STEPS // 10):
-            state, metrics = engine.train_steps(
-                state, [next(stream) for _ in range(10)])
-        float(metrics["loss"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        r = results[method] = {
-            "params": counts, "launches": launches,
-            "slices_per_s": MEASURE_STEPS * BATCH / dt,
-            "ms_per_step": dt / MEASURE_STEPS * 1e3,
-            "peak_gib": peak / 2 ** 30}
-        extra = (f", uncertainty mask {late[-1]['uncertainty_mask_frac']:.4f}"
-                 if method == "uamt" else "")
-        if engine.method.adversarial_models:
-            extra += (f", loss_d {late[-1]['loss_d']:.4f} dan_acc "
-                      f"{late[-1]['dan_acc']:.3f}")
-        extra += f"; compute dtypes {engine.model_dtypes}"
-        print(f"method {method}: parameters {counts}; "
-              f"{2 * METHOD_STEPS} steps, launches {launches} "
-              f"({per_step} + {per_step} a step"
-              f"{', under sync debug mode error' if strict else ''}); loss "
-              f"{vals[0]['loss']:.4f} -> {vals[METHOD_STEPS - 1]['loss']:.4f}"
-              f" (from 0), {late[0]['loss']:.4f} -> {late[-1]['loss']:.4f} "
-              f"(from 1000), {cons_key} {late[-1][cons_key]:.3e}{extra}; "
-              f"{r['slices_per_s']:.2f} slices/s ({r['ms_per_step']:.2f} "
-              f"ms/step over {MEASURE_STEPS} steps), peak memory "
-              f"{r['peak_gib']:.3f} GiB, on {card}")
-        r["busy_ms_per_step"] = profile_steps(engine, state, stream,
-                                              dt / MEASURE_STEPS, top=5)
-        del engine, state, metrics
+def drive_method(engine, state, stream, per_step, strict, card, batch):
+    """One method at full width: its models' parameter counts; 5 steps
+    from step 0 and 5 from step 1000 (under sync debug mode "error" if
+    ``strict``), kernel #1 launched ``per_step`` times a step, forward and
+    backward; finite losses; a live unsupervised term after step 1000 (the
+    pseudo-supervision of cps and the CNN+ViT methods read through their
+    ``_pseudo_*`` terms and recomputed here, see :func:`check_pseudo`); the
+    teachers, or else every model, and the discriminators moved; then
+    slices/s and peak memory over 30 steps and a short profile of the
+    step. Returns the method's numbers."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+
+    method = engine.cfg.method
+    counts = {}
+    for slot, model in state.models.items():
+        n = sum(p.numel() for p in model.parameters())
+        kind = engine.method.net_types()[slot]
+        if n != MODEL_PARAMS[kind]:
+            raise SystemExit(f"{method} {slot}: {n} parameters, not "
+                             f"{MODEL_PARAMS[kind]} ({kind})")
+        counts[slot] = n
+    watched = {f"teacher {n}": m for n, m in state.teachers.items()}
+    if method in PSEUDO_PAIRS or not watched:
+        watched.update(state.models)
+    watched.update({n: state.models[n]
+                    for n in engine.method.adversarial_models})
+    start_params = {n: [p.detach().clone() for p in m.parameters()]
+                    for n, m in watched.items()}
+    pseudo = spy_pseudo(engine.method) if method in PSEUDO_PAIRS else None
+
+    fcd.reset_launches()
+    vals = []
+    for start in (0, 1000):
+        state.step = start
+        for _ in range(METHOD_STEPS):
+            before = dict(fcd.LAUNCHES)
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, metrics = engine.train_steps(state, [next(stream)])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            for k in before:
+                if fcd.LAUNCHES[k] != before[k] + per_step:
+                    raise SystemExit(
+                        f"{method} {k}: {before[k]} -> {fcd.LAUNCHES[k]} "
+                        f"in one step, not +{per_step}")
+            vals.append(metrics)
+    torch.cuda.synchronize()
+    launches = dict(fcd.LAUNCHES)
+    vals = [{k: float(v) for k, v in m.items()} for m in vals]
+    if not all(math.isfinite(x) for v in vals for x in v.values()):
+        raise SystemExit(f"{method}: non-finite metrics {vals}")
+    late = vals[METHOD_STEPS:]
+    cons_key = CONSISTENCY_KEY.get(method, "consistency_loss")
+    if pseudo is not None:
+        calls_per_step = len(PSEUDO_PAIRS[method])
+        if len(pseudo) != calls_per_step * 2 * METHOD_STEPS:
+            raise SystemExit(f"{method}: {len(pseudo)} pseudo-supervision "
+                             f"terms in {2 * METHOD_STEPS} steps")
+        cons_key = "pseudo_supervision"
+        for i, v in enumerate(late, METHOD_STEPS):
+            v[cons_key] = check_pseudo(
+                method, pseudo[calls_per_step * i:calls_per_step * (i + 1)],
+                v)
+        # the recording ends here: it would keep every step's maps alive
+        # (and the method, whose bound term the spy holds)
+        del engine.method.__dict__[PSEUDO_TERM[method]], pseudo
+    if not all(v[cons_key] > 0.0 for v in late):
+        raise SystemExit(f"{method}: {cons_key} not > 0 after step "
+                         f"1000: {[v[cons_key] for v in late]}")
+    for n, m in watched.items():
+        if all(torch.equal(a, b) for a, b in
+               zip(start_params[n], m.parameters())):
+            raise SystemExit(f"{method}: {n} did not move")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MEASURE_STEPS // 10):
+        state, metrics = engine.train_steps(
+            state, [next(stream) for _ in range(10)])
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    r = {"params": counts, "launches": launches,
+         "slices_per_s": MEASURE_STEPS * batch / dt,
+         "ms_per_step": dt / MEASURE_STEPS * 1e3,
+         "peak_gib": peak / 2 ** 30}
+    extra = (f", uncertainty mask {late[-1]['uncertainty_mask_frac']:.4f}"
+             if method == "uamt" else "")
+    if engine.method.adversarial_models:
+        extra += (f", loss_d {late[-1]['loss_d']:.4f} dan_acc "
+                  f"{late[-1]['dan_acc']:.3f}")
+    extra += f"; compute dtypes {engine.model_dtypes}"
+    print(f"method {method}: parameters {counts}; "
+          f"{2 * METHOD_STEPS} steps, launches {launches} "
+          f"({per_step} + {per_step} a step"
+          f"{', under sync debug mode error' if strict else ''}); loss "
+          f"{vals[0]['loss']:.4f} -> {vals[METHOD_STEPS - 1]['loss']:.4f}"
+          f" (from 0), {late[0]['loss']:.4f} -> {late[-1]['loss']:.4f} "
+          f"(from 1000), {cons_key} {late[-1][cons_key]:.3e}{extra}; "
+          f"{r['slices_per_s']:.2f} slices/s ({r['ms_per_step']:.2f} "
+          f"ms/step over {MEASURE_STEPS} steps of {batch}), peak memory "
+          f"{r['peak_gib']:.3f} GiB, on {card}")
+    r["busy_ms_per_step"] = profile_steps(engine, state, stream,
+                                          dt / MEASURE_STEPS, top=5)
+    return r
+
+
+def run_vit_methods(card, strict):
+    """Phase 5b: north-star config 4's CNN+ViT methods, a UNet and
+    SwinUnet-tiny (27,168,420 parameters) at full width, batch 16 = 8 + 8
+    at 224^2, dtype auto (bf16 for both), from their own store of the
+    synthetic slices at 224^2; each through :func:`drive_method`, with its
+    Dice pseudo-supervision recomputed; then the eval-mode SwinUnet on the
+    card against the CPU (:func:`check_vit_eval`)."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
+    from cvssl_tpu_torch.train.engine import Engine
+
+    t0 = time.perf_counter()
+    store = DeviceSliceStore(SyntheticACDC(), (VIT_PATCH, VIT_PATCH))
+    print(f"ViT store: {tuple(store.images.shape)} built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the store's first gather at a new size builds its rotation tables
+    # (one host copy, cached): before the steps checked for synchronising
+    # calls
+    store.batch_fn(store.arrays(),
+                   torch.arange(VIT_BATCH, device=store.images.device),
+                   torch.Generator(device=store.images.device).manual_seed(0))
+    stream = two_stream(2, VIT_BATCH, VIT_LABELED_BS).epochs()
+    results = {}
+    for method, per_step in VIT_METHOD_LAUNCHES.items():
+        engine = Engine(vit_config(method))
+        engine.attach_store(store)
+        state = engine.init_state()
+        results[method] = drive_method(engine, state, stream, per_step,
+                                       strict, card, VIT_BATCH)
+        if method == "cross_teaching":
+            check_vit_eval(engine, state, store)
+        del engine, state
         torch.cuda.empty_cache()
     return results
 
 
-def spy_pseudo_ce(method):
-    """Record each ``_pseudo_ce`` call of a cps ``method`` (model 1's
-    unlabeled logits with model 2's pseudo-labels, then the reverse) as
-    (logits, pseudo-labels, term), kept on the card; ``del
-    method._pseudo_ce`` ends the recording."""
+def spy_pseudo(method):
+    """Record each pseudo-supervision call of ``method`` (``_pseudo_ce`` of
+    cps, ``_pseudo_dice`` of the CNN+ViT methods: one model's unlabeled
+    logits or softmax with another model's pseudo-labels) as (input,
+    pseudo-labels, term), kept on the card; deleting the instance's
+    attribute ends the recording."""
     calls = []
-    inner = method._pseudo_ce
+    name = PSEUDO_TERM[method.name]
+    inner = getattr(method, name)
 
-    def spy(logits_unl, pseudo):
-        term = inner(logits_unl, pseudo)
-        calls.append((logits_unl.detach(), pseudo, term.detach()))
+    def spy(x, pseudo):
+        term = inner(x, pseudo)
+        calls.append((x.detach(), pseudo, term.detach()))
         return term
-    method._pseudo_ce = spy
+    setattr(method, name, spy)
     return calls
 
 
-def check_pseudo_ce(calls, metrics):
-    """One cps step's two pseudo-supervision calls: each model's
-    pseudo-labels are the argmax of the other model's softmax (all but
-    1e-4 of the sites), and each term is the plain ``F.cross_entropy``
-    against them (rel 1e-4). Returns the weighted pseudo-supervision of
-    both models, the part of the loss that the pseudo-labels make."""
+def plain_dice(soft, labels, classes):
+    """1 - mean over classes of (2 sum p y + s) / (sum p^2 + sum y + s), in
+    float64 (the reference's ``DiceLoss`` of a softmax, s = 1e-5)."""
+    import torch.nn.functional as F
+    p = soft.double()
+    y = F.one_hot(labels.long(), classes).movedim(-1, 1).double()
+    red = (0, 2, 3)
+    per = 1.0 - (2.0 * (p * y).sum(red) + 1e-5) / (
+        (p * p).sum(red) + y.sum(red) + 1e-5)
+    return per.mean()
+
+
+def check_pseudo(method, calls, metrics):
+    """One step's pseudo-supervision calls, in the order of
+    ``PSEUDO_PAIRS[method]`` ((i, j): model i's input, model j's
+    pseudo-labels): each pseudo-label map is the argmax of model j's
+    softmax (all but 1e-4 of the sites), and each term is the plain
+    ``F.cross_entropy`` (cps) or float64 Dice (the CNN+ViT methods) against
+    it (rel 1e-4). Returns the consistency weight times their sum."""
     import torch
     import torch.nn.functional as F
-    (l1, p2, ps1), (l2, p1, ps2) = calls
+    pairs = PSEUDO_PAIRS[method]
+    inputs = {}
+    for (i, _), (x, _, _) in zip(pairs, calls):
+        inputs.setdefault(i, x)
     total = 0.0
-    for logits, labels, other, term in ((l1, p2, l2, ps1),
-                                        (l2, p1, l1, ps2)):
-        want = torch.argmax(torch.softmax(other.float(), dim=1), dim=1)
+    for (i, j), (x, labels, term) in zip(pairs, calls):
+        want = torch.argmax(torch.softmax(inputs[j].float(), dim=1), dim=1)
         flips = int((want != labels).sum())
         if flips > labels.numel() * 1e-4:
-            raise SystemExit(f"cps: {flips} of {labels.numel()} "
-                             "pseudo-labels are not the other model's argmax")
-        ce = float(F.cross_entropy(logits.float(), labels))
-        if not math.isclose(float(term), ce, rel_tol=1e-4):
-            raise SystemExit(f"cps: pseudo-supervision {float(term)} is not "
-                             f"the cross entropy {ce}")
-        total += metrics["consistency_weight"] * ce
+            raise SystemExit(f"{method}: {flips} of {labels.numel()} "
+                             f"pseudo-labels are not model {j + 1}'s argmax")
+        plain = (float(F.cross_entropy(x.float(), labels))
+                 if method == "cps" else
+                 float(plain_dice(x, labels, x.shape[1])))
+        if not math.isclose(float(term), plain, rel_tol=1e-4):
+            raise SystemExit(f"{method}: pseudo-supervision {float(term)} "
+                             f"is not the plain term {plain}")
+        total += metrics["consistency_weight"] * plain
     return total
 
 
@@ -898,6 +1015,41 @@ def check_eval(engine, state, store):
     print(f"eval: predict ok; f32 card vs CPU forward max rel err {err:.2e}")
     if err > 1e-4:
         raise SystemExit("f32 eval forward on the card disagrees with CPU")
+
+
+def check_vit_eval(engine, state, store):
+    """Phase 5b's eval check: the SwinUnet slot's predictions, and its
+    eval-mode forward in float32 on the card against the same weights on
+    the CPU."""
+    import torch
+    from cvssl_tpu_torch.models.swin_unet import SwinUnet
+
+    x = store.images[:VIT_BATCH].float()[:, None]
+    pred = engine.predict_fn("model2", state)(x)
+    torch.cuda.synchronize()
+    if (pred.shape != (VIT_BATCH, VIT_PATCH, VIT_PATCH)
+            or pred.dtype != torch.uint8 or int(pred.max()) >= CLASSES):
+        raise SystemExit(f"SwinUnet predict: {pred.shape} {pred.dtype}")
+    model = state.models["model2"]
+    ref = SwinUnet(num_classes=CLASSES, img_size=VIT_PATCH)
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    small = x[:2]
+    model.eval()
+    try:
+        with torch.no_grad():
+            got = model(small).cpu()
+    finally:
+        model.train()
+    with torch.no_grad():
+        want = ref.eval()(small.cpu())
+    if got.dtype != torch.float32:
+        raise SystemExit(f"SwinUnet f32 forward gave {got.dtype}")
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"SwinUnet eval: predict ok; f32 card vs CPU forward max rel err "
+          f"{err:.2e}")
+    if err > 1e-4:
+        raise SystemExit("SwinUnet's f32 eval forward on the card disagrees "
+                         "with the CPU")
 
 
 def check_conv(device):
@@ -1116,6 +1268,7 @@ def run_fit(device, card):
     del engine, results, state
     run_cps_fit(card, train_ds, val_ds)
     run_fixmatch_fit(card, train_ds, val_ds)
+    run_vit_fit(card, train_ds)
 
 
 def run_cps_fit(card, train_ds, val_ds):
@@ -1205,6 +1358,66 @@ def run_fixmatch_fit(card, train_ds, val_ds):
     print(f"fixmatch fit files: {files}")
 
 
+def run_vit_fit(card, train_ds):
+    """Phase 7d: ``fit`` of cross_teaching at north-star config 4's size
+    (a UNet and SwinUnet-tiny, batch 16 = 8 + 8 at 224^2) on the same
+    train slices and val volumes at 224^2, 200 iterations with val and
+    checkpoints every 100; model2 validated at ``patch_size2`` (224^2,
+    JAX ``Engine.validate``): both slots validated each time, the
+    dual-model files (``model1_``/``model2_`` prefixes, ``unet_best_model1``
+    where model 1's Dice rose, no EMA files), two launches of each kernel
+    an iteration, slices/s."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, fit
+
+    val_ds = blob_volumes(side=VIT_PATCH)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ct_")
+    cfg = vit_config("cross_teaching", val_every=VIT_FIT_EVERY,
+                     ckpt_every=VIT_FIT_EVERY, log_every=100,
+                     snapshot_root=tmp, exp="ACDC/smoke_ct",
+                     patch_size2=(VIT_PATCH, VIT_PATCH))
+    snap = cfg.snapshot_path()
+    fcd.reset_launches()
+    res = fit(cfg, engine=Engine(cfg), max_steps=VIT_FIT_STEPS,
+              data=(train_ds, two_stream(cfg.seed, VIT_BATCH,
+                                         VIT_LABELED_BS), val_ds))
+    torch.cuda.synchronize()
+    launches = dict(fcd.LAUNCHES)
+    if res["iterations"] != VIT_FIT_STEPS:
+        raise SystemExit(f"cross_teaching fit stopped at {res['iterations']}")
+    if any(v != 2 * VIT_FIT_STEPS for v in launches.values()):
+        raise SystemExit(f"cross_teaching fit: launches {launches} in "
+                         f"{VIT_FIT_STEPS} iterations")
+    validations = VIT_FIT_STEPS // VIT_FIT_EVERY
+    if (len(res["val_seconds"]) != 2 * validations
+            or set(res["best_dice"]) != {"model1", "model2"}):
+        raise SystemExit(f"cross_teaching fit: {len(res['val_seconds'])} "
+                         f"validations of {sorted(res['best_dice'])}")
+    files = sorted(os.listdir(snap))
+    want = [f"model{i}_iter_{k}.ckpt" for i in (1, 2)
+            for k in range(VIT_FIT_EVERY, VIT_FIT_STEPS + 1, VIT_FIT_EVERY)]
+    want += [f"model_iter_{k}.ckpt" for k in
+             range(VIT_FIT_EVERY, VIT_FIT_STEPS + 1, VIT_FIT_EVERY)]
+    want += [f"unet_best_{slot}.ckpt"
+             for slot, dice in res["best_dice"].items() if dice > 0.0]
+    if res["best_dice"]["model1"] <= 0.0:
+        raise SystemExit(f"cross_teaching fit: best dice {res['best_dice']}")
+    for name in want:
+        if name not in files:
+            raise SystemExit(f"cross_teaching fit: no {name} in {files}")
+    if any("ema" in f for f in files) or any(f.startswith("iter_")
+                                             for f in files):
+        raise SystemExit(f"cross_teaching fit: single-model or EMA files "
+                         f"{files}")
+    print(f"cross_teaching fit to {VIT_FIT_STEPS} (UNet + SwinUnet, batch "
+          f"{VIT_BATCH} at {VIT_PATCH}^2): {res['slices_per_sec']:.2f} "
+          f"slices/s including validation and checkpoints, val passes "
+          f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
+          f"{launches}, best dice {res['best_dice']}, on {card}")
+    print(f"cross_teaching fit files: {files}")
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1280,8 +1493,9 @@ def main(argv=None) -> int:
     trace_kernels(device)
     check_eval(engine, state, store)
     del engine, state
-    methods = run_other_methods(device, smi, store)
+    methods, strict = run_other_methods(device, smi, store)
     del store
+    methods.update(run_vit_methods(smi, strict))
 
     wait("conv3x3_p8")
     conv_err = check_conv(device)

@@ -1,12 +1,12 @@
 """2D model registry (port of ``cvssl_tpu/models/factory.py``; the UNet
-family and the discriminator so far)."""
+family, the discriminator and SwinUnet so far)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from torch import nn
 
-from cvssl_tpu_torch.models import discriminator, unet
+from cvssl_tpu_torch.models import discriminator, swin_unet, unet
 
 _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "unet": lambda in_chns, class_num, **kw: unet.UNet(
@@ -23,7 +23,11 @@ _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "discriminator": lambda in_chns, class_num, **kw:
         discriminator.FCDiscriminator(num_classes=class_num, in_chns=in_chns,
                                       **kw),
+    # one or three input channels (one is repeated, as ViT_seg does)
+    "swin_unet": lambda in_chns, class_num, **kw: swin_unet.SwinUnet(
+        num_classes=class_num, **kw),
 }
+_REGISTRY_2D["ViT_Seg"] = _REGISTRY_2D["swin_unet"]
 
 
 def net_factory(net_type: str = "unet", in_chns: int = 1,

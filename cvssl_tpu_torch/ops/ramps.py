@@ -25,3 +25,11 @@ def consistency_weight(step: int, consistency: float = 0.1,
     return float(np.float32(consistency)
                  * np.float32(sigmoid_rampup(int(step) // 150,
                                              consistency_rampup)))
+
+
+def linear_rampup(current, rampup_length) -> float:
+    """Linear 0 -> 1 ramp, in float32. JAX: ``ramps.linear_rampup``."""
+    if rampup_length == 0:
+        return 1.0
+    return float(np.clip(np.float32(current) / np.float32(rampup_length),
+                         0.0, 1.0))

@@ -15,8 +15,9 @@ TPU are accepted and inert here:
 
 ``num_devices`` must be None or 1: the port trains on one card so far.
 ``fused_loss`` must be None or True: the fused CE+Dice kernel is always on.
-``pretrained_ckpt`` must be None: ``fit`` raises for it until the
-checkpoint loaders are ported.
+``pretrained_ckpt`` must be None: ``fit`` raises for it until the CNN
+encoder loader is ported (JAX's ``fit`` loads only CNN encoders; the Swin
+remap is ``models/swin_checkpoint.py::load_from``).
 """
 from __future__ import annotations
 
@@ -89,7 +90,7 @@ class TrainConfig:
     dcn_slices: Optional[int] = None   # inert (TPU mesh folding)
     profile_dir: Optional[str] = None  # not ported yet: fit raises
     compile_cache: Optional[str] = "auto"  # inert (XLA compilation cache)
-    vit_kwargs: Optional[dict] = None
+    vit_kwargs: Optional[dict] = None  # SwinUnet constructor overrides
     pretrained_ckpt: Optional[str] = None
 
     def __post_init__(self):
@@ -130,13 +131,26 @@ class TrainConfig:
     # the nets whose JAX module takes the compute dtype
     # (``cvssl_tpu.train.config.TrainConfig.model_kwargs``); JAX's
     # ``unet_3D`` and ``unet_3D_dv_semi`` join them with the 3D port
-    COMPUTE_DTYPE_NETS = ("unet",)
+    COMPUTE_DTYPE_NETS = ("unet", "swin_unet", "ViT_Seg")
+    VIT_NETS = ("swin_unet", "ViT_Seg")
+
+    def model_kwargs(self, net_type: str) -> dict:
+        """Constructor arguments of ``net_type``: for the ViT slot the
+        training patch as ``img_size`` (the reference builds ``ViT_seg``
+        with ``img_size=args.patch_size``; the port's SwinUnet fixes each
+        stage's window from it), then ``vit_kwargs``; nothing for the other
+        nets. The dtype is not among them: it is :meth:`model_dtype`, under
+        which the engine autocasts each model."""
+        if net_type in self.VIT_NETS:
+            return {"img_size": tuple(self.patch_size),
+                    **(self.vit_kwargs or {})}
+        return {}
 
     def model_dtype(self, net_type: str, device) -> torch.dtype:
         """The dtype ``net_type`` computes in on ``device``: the resolved
-        compute dtype for the plain UNet, float32 for every other net (the
-        UNet variants and the discriminator have no dtype field in JAX, so
-        they run in float32 whatever ``dtype`` says)."""
+        compute dtype for the plain UNet and SwinUnet, float32 for every
+        other net (the UNet variants and the discriminator have no dtype
+        field in JAX, so they run in float32 whatever ``dtype`` says)."""
         if net_type in self.COMPUTE_DTYPE_NETS:
             return self.compute_dtype(device)
         return torch.float32

@@ -16,10 +16,10 @@ machine without CUDA, ``Engine(cfg)`` raises.
 
 Numerics on the card: float32 matmuls and convolutions run in full float32
 (TF32 off for both cuBLAS and cuDNN, set explicitly, since cuDNN's default is
-TF32); under ``dtype="auto"`` the plain UNet's convolutions run in bfloat16
-through autocast, with float32 parameters, BatchNorm statistics and losses;
-the UNet variants and the discriminator run in float32, as in JAX
-(``TrainConfig.model_dtype``).
+TF32); under ``dtype="auto"`` the plain UNet's convolutions and SwinUnet's
+matmuls run in bfloat16 through autocast, with float32 parameters,
+BatchNorm statistics and losses; the UNet variants and the discriminator
+run in float32, as in JAX (``TrainConfig.model_dtype``).
 """
 from __future__ import annotations
 

@@ -13,3 +13,6 @@ from cvssl_tpu_torch.train.methods import urpc  # noqa: F401
 from cvssl_tpu_torch.train.methods import fixmatch  # noqa: F401
 from cvssl_tpu_torch.train.methods import adversarial  # noqa: F401
 from cvssl_tpu_torch.train.methods import exam  # noqa: F401
+from cvssl_tpu_torch.train.methods import cross_teaching  # noqa: F401
+from cvssl_tpu_torch.train.methods import cnn_meet_vit  # noqa: F401
+from cvssl_tpu_torch.train.methods import tripleview  # noqa: F401

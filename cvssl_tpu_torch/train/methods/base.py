@@ -60,7 +60,8 @@ class Method:
         if self.cfg.dim != 2:
             raise NotImplementedError("3D models are not ported yet")
         return net_factory(net_type, self.cfg.in_channels,
-                           self.cfg.num_classes)
+                           self.cfg.num_classes,
+                           **self.cfg.model_kwargs(net_type))
 
     def net_types(self) -> Dict[str, str]:
         """The registered net type of each model slot; it also decides the

@@ -243,23 +243,39 @@ def _capture_each_grads(mp):
     return made
 
 
+def _scale_head(net, params, factor):
+    """``params`` of a ``net`` with its output layer scaled by ``factor``
+    (a UNet's output conv, a SwinUnet's 1x1 head), else as they are."""
+    if net == "unet":
+        return _scale_out_conv(params, factor)
+    if net == "swin_unet":
+        p = jax.tree_util.tree_map(np.array, params)
+        p["output"]["kernel"] *= factor
+        return p
+    return params
+
+
 def run_step(method_name, jmodules, port_models, batch, seed=0,
-             scale=OUT_SCALE, step=FULL_STEP, consistency=1.0):
+             scale=OUT_SCALE, step=FULL_STEP, consistency=1.0, nets=None,
+             **cfg_kw):
     """One step ``step`` of ``method_name`` in both packages from JAX's
-    initial weights (the segmenter's output conv scaled by ``scale``):
+    initial weights (each segmenter's output layer scaled by ``scale``):
     ``jmodules`` are the Flax modules by slot, ``port_models`` a function
-    of the slot giving the port's module, ``batch`` NHWC numpy arrays.
-    Returns both states, metrics and gradients, and the port's draws. The
-    defaults put the consistency weight at 1: the unsupervised terms
-    weigh in the gradients as much as the supervised ones."""
-    cfg = {**CFG, "consistency": consistency}
+    of the slot giving the port's module, ``batch`` NHWC numpy arrays,
+    ``nets`` the net type of each slot (default: the segmenter ``model`` a
+    UNet, ``dan`` the discriminator), ``cfg_kw`` more fields of both
+    configs. Returns both states, metrics and gradients, and the port's
+    draws. The defaults put the consistency weight at 1: the unsupervised
+    terms weigh in the gradients as much as the supervised ones."""
+    net = nets or {"model": "unet", "dan": "discriminator"}
+    cfg = {**CFG, "consistency": consistency, **cfg_kw}
     jcfg = JConfig(method=method_name, **cfg)
     jeng = JEngine(jcfg)
     jeng.modules = jmodules
     state = jeng.init_state(jax.random.PRNGKey(seed), batch)
     state = state.replace(step=jnp.int32(step))
-    params = dict(state.params)
-    params["model"] = _scale_out_conv(params["model"], scale)
+    params = {n: _scale_head(net[n], p, scale)
+              for n, p in state.params.items()}
     state = state.replace(params=params, teacher_params={
         n: copy.deepcopy(params[n]) for n in state.teacher_params})
     p0 = _np_tree(state.params)
@@ -272,7 +288,6 @@ def run_step(method_name, jmodules, port_models, batch, seed=0,
             return {n: port_models(n) for n in jmodules}
     teng = TEngine(tcfg, method=Narrow(tcfg), device="cpu")
     tstate = teng.init_state()
-    net = {"model": "unet", "dan": "discriminator"}
     for n in jmodules:
         sd = state_dict_from_flax(net[n], p0[n], bs0.get(n, {}))
         tstate.models[n].load_state_dict(sd)

@@ -175,7 +175,7 @@ def test_factory_names_match_jax():
     for name in FULL_WIDTH:
         jfactory.net_factory(name, 1, 4)
     with pytest.raises(ValueError, match="unknown 2D net"):
-        net_factory("swin_unet")
+        net_factory("enet")
 
 
 @pytest.mark.parametrize("name,kwargs", [
