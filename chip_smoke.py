@@ -9,7 +9,8 @@ started at once in the background), then runs, in order; any failure ends
 the run with a non-zero exit:
 
 1. device: CUDA must be available; prints the card's name and power limit,
-   and whether ``h5py`` is installed (the fit phase does not need it);
+   and whether ``h5py`` and ``PIL`` are installed (the fit phase needs
+   neither; CTAugment, not ported yet, uses PIL in JAX);
 2. kernels against their plain version: the fused CE+Dice forward and
    backward (``csrc/fused_ce_dice.cu``) on the card at the main-path shape
    (12, 4, 256, 256), the CNN+ViT methods' (8, 4, 224, 224), a ragged
@@ -38,29 +39,37 @@ the run with a non-zero exit:
    mean-teacher step makes the host wait (``torch.cuda``'s sync debug
    mode, "warn"); then for each of uamt, ict, deep_co_training, cps, cct,
    urpc, fixmatch (on its own ``weak_strong`` store over the same slices),
-   adversarial and exam_student_teacher its models' parameter counts (UNet
-   1,813,764, UNetCCT 3,713,664, UNetURPC 1,821,840, FCDiscriminator
-   2,762,754), 5 steps from step 0 and 5 from step 1000 with kernel #1
-   launched 1, 1, 1, 2, 4, 4, 1, 1, 1 times a step (forward and backward),
+   adversarial, exam_student_teacher and contrastive_cross's CNN variant
+   (two UNets and four contrastive heads, on its own ``weak`` store) its
+   models' parameter counts (UNet 1,813,764, UNetCCT 3,713,664, UNetURPC
+   1,821,840, FCDiscriminator 2,762,754, Projector 1,512, Classifier
+   7,272), 5 steps from step 0 and 5 from step 1000 with kernel #1
+   launched 1, 1, 1, 2, 4, 4, 1, 1, 1, 2 times a step (forward and
+   backward),
    finite losses, a live consistency term after step 1000 (for cps: its
    pseudo-supervision term, recomputed from the other model's argmax; for
    fixmatch its unsupervised term), the teachers (uamt, ict, fixmatch,
-   exam), both models (cps) and the discriminators moved, slices/s and
+   exam), both models (cps, contrastive_cross) and the discriminators
+   moved, the heads' weights not (they are in no optimizer) and their
+   BatchNorm statistics moved, slices/s and
    peak memory over 30 steps, and a short profile of each method's step
    (device busy time per step); every method's checked steps run under the
    sync debug mode "error" if the mean-teacher step made no synchronising
    call. uamt's output conv is scaled by 8 so that its MC teacher is sure
    somewhere;
-5b. north-star config 4's CNN+ViT methods, cross_teaching, cnn_meet_vit
-   and tripleview: a UNet and SwinUnet-tiny (27,168,420 parameters; two
-   UNets for tripleview) at full width, batch 16 = 8 + 8 at 224^2, dtype
-   auto (bf16 for both), from their own store of the same synthetic slices
-   at 224^2; the same checks and numbers as phase 5 for each, kernel #1
-   launched 2, 2 and 3 times a step, every model (and cnn_meet_vit's
-   teacher) moved, the Dice pseudo-supervision after step 1000 recomputed
-   from the other model's argmax with a plain float64 Dice; then the
-   SwinUnet's predictions and its eval forward in float32 on the card
-   against the CPU;
+5b. north-star config 4's CNN+ViT methods, cross_teaching, cnn_meet_vit,
+   tripleview, adversarial_consistency and contrastive_cross: a UNet and
+   SwinUnet-tiny (27,168,420 parameters; two UNets for tripleview;
+   SwinUnet alone as ``model`` with the float32 FCDiscriminator for
+   adversarial_consistency; the four heads beside the two models for
+   contrastive_cross) at full width, batch 16 = 8 + 8 at 224^2, dtype auto
+   (bf16 for both), from their own store of the same synthetic slices at
+   224^2 (contrastive_cross: a ``weak`` store of them); the same checks and
+   numbers as phase 5 for each, kernel #1 launched 2, 2, 3, 1 and 2 times a
+   step, every model (and the teachers) moved, the Dice pseudo-supervision
+   after step 1000 recomputed from the other model's argmax with a plain
+   float64 Dice; then the SwinUnet's predictions and its eval forward in
+   float32 on the card against the CPU;
 6. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
    three against the plain version run on the card in float64 at
    (24, 256, 256, 16) f32 and bf16 input (tile_h 32), at the JAX tests'
@@ -92,9 +101,17 @@ the run with a non-zero exit:
    mode; then ``fit`` of cross_teaching at config 4's size on the same
    train slices and val volumes at 224^2, 200 iterations with val and
    checkpoints every 100: both slots validated (model2 at ``patch_size2``),
-   the dual-model files, two launches of each kernel an iteration;
+   the dual-model files, two launches of each kernel an iteration; then the
+   host data path: the host's time to transform and collate a batch, a
+   few mean-teacher steps from the host pipeline's pinned batches (under
+   the sync debug mode "error" where phase 5 ran so), and a 200-iteration
+   mean-teacher ``fit`` with ``device_data=False`` on cell 2's data (one
+   validation, one checkpoint, its slices/s beside the store path's);
+   then ``fit`` of contrastive_cross at config 4's size, 100 iterations,
+   both slots validated, its files;
 8. one JSON line of the kernels (kernel #1's with its launches in each
-   method's run of phases 5 and 5b), then the result line
+   method's run of phases 5 and 5b; phase 5b's contrastive_cross as
+   ``contrastive_cross_vit``), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -143,13 +160,18 @@ FIT_STEPS, FIT_RESUME_STEPS, FIT_EVERY = 400, 600, 200
 # launches per step of each
 METHOD_LAUNCHES = {"uamt": 1, "ict": 1, "deep_co_training": 1, "cps": 2,
                    "cct": 4, "urpc": 4, "fixmatch": 1, "adversarial": 1,
-                   "exam_student_teacher": 1}
+                   "exam_student_teacher": 1, "contrastive_cross": 2}
+# config fields of a method beyond method_config's: contrastive_cross's
+# CNN variant
+METHOD_KW = {"contrastive_cross": {"model2": "unet"}}
 METHOD_STEPS = 5               # from step 0, and again from step 1000
 MODEL_PARAMS = {"unet": 1_813_764, "unet_cct": 3_713_664,
                 "unet_urpc": 1_821_840, "discriminator": 2_762_754,
-                "swin_unet": 27_168_420}
+                "swin_unet": 27_168_420, "projector": 1_512,
+                "classifier": 7_272}
 # the metric that carries each method's unsupervised term
-CONSISTENCY_KEY = {"fixmatch": "unsup_loss"}
+CONSISTENCY_KEY = {"fixmatch": "unsup_loss",
+                   "adversarial_consistency": "ict_loss"}
 # uamt's output conv (student and teacher) scaled up, so that the MC
 # teacher of a freshly initialised UNet is sure at some sites and the
 # masked consistency term is live (random init alone: every site's entropy
@@ -162,18 +184,27 @@ CPS_FIT_STEPS, CPS_FIT_EVERY = 200, 100
 VIT_BATCH, VIT_LABELED_BS, VIT_PATCH = 16, 8, 224
 VIT_SHAPE = (VIT_LABELED_BS, CLASSES, VIT_PATCH, VIT_PATCH)
 VIT_METHOD_LAUNCHES = {"cross_teaching": 2, "cnn_meet_vit": 2,
-                       "tripleview": 3}
+                       "tripleview": 3, "adversarial_consistency": 1,
+                       "contrastive_cross": 2}
+# adversarial_consistency trains SwinUnet as its ``model``
+VIT_KW = {"adversarial_consistency": {"model": "swin_unet"}}
 VIT_FIT_STEPS, VIT_FIT_EVERY = 200, 100
 # each method's pseudo-supervision term, and its calls in a step, in
 # order: (i, j) is model i's input with model j's argmax as labels
 PSEUDO_TERM = {"cps": "_pseudo_ce", "cross_teaching": "_pseudo_dice",
-               "cnn_meet_vit": "_pseudo_dice", "tripleview": "_pseudo_dice"}
+               "cnn_meet_vit": "_pseudo_dice", "tripleview": "_pseudo_dice",
+               "contrastive_cross": "_pseudo_dice"}
 PSEUDO_PAIRS = {"cps": ((0, 1), (1, 0)),
                 "cross_teaching": ((0, 1), (1, 0)),
+                "contrastive_cross": ((0, 1), (1, 0)),
                 "cnn_meet_vit": ((0, 1), (1, 0)),
                 "tripleview": ((0, 1), (0, 2), (1, 0), (1, 2), (2, 0),
                                (2, 1))}
 FIXMATCH_FIT_STEPS = 100       # one validation, one checkpoint
+# the host data path: batches timed on the host, steps checked for
+# synchronising calls, fit iterations (one validation, one checkpoint)
+HOST_TIMED_BATCHES, HOST_CHECKED_STEPS, HOST_FIT_STEPS = 20, 3, 200
+CC_FIT_STEPS = 100             # contrastive_cross at 224^2: one of each
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -753,14 +784,15 @@ def run_other_methods(device, card, store):
     strict = not mt_sites
     results = {}
     for method, per_step in METHOD_LAUNCHES.items():
-        engine = Engine(method_config(method))
-        if engine.method.transform == "weak_strong":
-            # fixmatch's own store over the same slices (freed with the
-            # engine)
+        engine = Engine(method_config(method, **METHOD_KW.get(method, {})))
+        mode = engine.method.transform
+        if mode != "default":
+            # the method's own store over the same slices (fixmatch's
+            # weak_strong, contrastive_cross's weak; freed with the engine)
             t0 = time.perf_counter()
             engine.attach_store(DeviceSliceStore(
-                SyntheticACDC(), engine.cfg.patch_size, mode="weak_strong"))
-            print(f"weak_strong store: {tuple(engine.store.images.shape)} "
+                SyntheticACDC(), engine.cfg.patch_size, mode=mode))
+            print(f"{mode} store: {tuple(engine.store.images.shape)} "
                   f"built in {time.perf_counter() - t0:.1f} s")
         else:
             engine.attach_store(store)
@@ -799,13 +831,20 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
             raise SystemExit(f"{method} {slot}: {n} parameters, not "
                              f"{MODEL_PARAMS[kind]} ({kind})")
         counts[slot] = n
+    # models in no optimizer (contrastive_cross's heads): their weights
+    # stay, their BatchNorm statistics move
+    frozen = {n: m for n, m in state.models.items()
+              if n not in state.optimizers}
     watched = {f"teacher {n}": m for n, m in state.teachers.items()}
     if method in PSEUDO_PAIRS or not watched:
-        watched.update(state.models)
+        watched.update({n: m for n, m in state.models.items()
+                        if n not in frozen})
     watched.update({n: state.models[n]
                     for n in engine.method.adversarial_models})
     start_params = {n: [p.detach().clone() for p in m.parameters()]
-                    for n, m in watched.items()}
+                    for n, m in {**watched, **frozen}.items()}
+    start_stats = {n: [b.detach().clone() for b in m.buffers()]
+                   for n, m in frozen.items()}
     pseudo = spy_pseudo(engine.method) if method in PSEUDO_PAIRS else None
 
     fcd.reset_launches()
@@ -853,6 +892,15 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
         if all(torch.equal(a, b) for a, b in
                zip(start_params[n], m.parameters())):
             raise SystemExit(f"{method}: {n} did not move")
+    for n, m in frozen.items():
+        if not all(torch.equal(a, b) for a, b in
+                   zip(start_params[n], m.parameters())):
+            raise SystemExit(f"{method}: {n}'s weights moved (it is in no "
+                             "optimizer)")
+        if all(torch.equal(a, b) for a, b in zip(start_stats[n],
+                                                 m.buffers())):
+            raise SystemExit(f"{method}: {n}'s BatchNorm statistics did "
+                             "not move")
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -912,12 +960,22 @@ def run_vit_methods(card, strict):
                    torch.Generator(device=store.images.device).manual_seed(0))
     stream = two_stream(2, VIT_BATCH, VIT_LABELED_BS).epochs()
     results = {}
+    stores = {"default": store}
     for method, per_step in VIT_METHOD_LAUNCHES.items():
-        engine = Engine(vit_config(method))
-        engine.attach_store(store)
+        engine = Engine(vit_config(method, **VIT_KW.get(method, {})))
+        mode = engine.method.transform
+        if mode not in stores:
+            t0 = time.perf_counter()
+            stores[mode] = DeviceSliceStore(
+                SyntheticACDC(), (VIT_PATCH, VIT_PATCH), mode=mode)
+            print(f"ViT {mode} store: {tuple(stores[mode].images.shape)} "
+                  f"built in {time.perf_counter() - t0:.1f} s")
+        engine.attach_store(stores[mode])
         state = engine.init_state()
-        results[method] = drive_method(engine, state, stream, per_step,
-                                       strict, card, VIT_BATCH)
+        # contrastive_cross runs in phase 5 too (its CNN variant)
+        key = f"{method}_vit" if method in METHOD_LAUNCHES else method
+        results[key] = drive_method(engine, state, stream, per_step,
+                                    strict, card, VIT_BATCH)
         if method == "cross_teaching":
             check_vit_eval(engine, state, store)
         del engine, state
@@ -1182,9 +1240,11 @@ def drive_conv(device):
     return launches
 
 
-def run_fit(device, card):
+def run_fit(device, card, strict):
     """Phase 7: fit, its files, the val table, resume, throughput; then
-    the cps fit (:func:`run_cps_fit`)."""
+    the cps, fixmatch and cross_teaching fits, the host data path
+    (:func:`run_host_fit`, its steps under sync debug mode "error" if
+    ``strict``) and the contrastive_cross fit."""
     import torch
     from cvssl_tpu_torch.ops import edt
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
@@ -1265,10 +1325,14 @@ def run_fit(device, card):
     print(f"fit val table (dice, hd95) per class: {table.tolist()}; val "
           f"pass {val_s:.3f} s; EDT metrics alone {edt_s:.3f} s, peak "
           f"{peak / 2 ** 20:.1f} MiB above its inputs, on {card}")
+    store_sps = [r["slices_per_sec"] for r in results]
     del engine, results, state
     run_cps_fit(card, train_ds, val_ds)
     run_fixmatch_fit(card, train_ds, val_ds)
-    run_vit_fit(card, train_ds)
+    vit_val_ds = blob_volumes(side=VIT_PATCH)
+    run_vit_fit(card, train_ds, vit_val_ds)
+    run_host_fit(card, train_ds, val_ds, store_sps, strict)
+    run_cc_fit(card, train_ds, vit_val_ds)
 
 
 def run_cps_fit(card, train_ds, val_ds):
@@ -1358,7 +1422,7 @@ def run_fixmatch_fit(card, train_ds, val_ds):
     print(f"fixmatch fit files: {files}")
 
 
-def run_vit_fit(card, train_ds):
+def run_vit_fit(card, train_ds, val_ds):
     """Phase 7d: ``fit`` of cross_teaching at north-star config 4's size
     (a UNet and SwinUnet-tiny, batch 16 = 8 + 8 at 224^2) on the same
     train slices and val volumes at 224^2, 200 iterations with val and
@@ -1371,7 +1435,6 @@ def run_vit_fit(card, train_ds):
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
     from cvssl_tpu_torch.train.engine import Engine, fit
 
-    val_ds = blob_volumes(side=VIT_PATCH)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ct_")
     cfg = vit_config("cross_teaching", val_every=VIT_FIT_EVERY,
                      ckpt_every=VIT_FIT_EVERY, log_every=100,
@@ -1416,6 +1479,185 @@ def run_vit_fit(card, train_ds):
           f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
           f"{launches}, best dice {res['best_dice']}, on {card}")
     print(f"cross_teaching fit files: {files}")
+
+
+class HostSlices:
+    """The host path's train set: each slice through a host transform
+    (``data/transforms.py``), with its index, as ``SliceDataset`` gives
+    it."""
+
+    def __init__(self, base, transform):
+        self.base, self.transform = base, transform
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        return {**self.transform(self.base[i]), "idx": i}
+
+
+def host_data(base, cfg):
+    """(dataset, sampler) of the host path, as ``build_2d_data`` pairs
+    them: the reference's RandomGenerator drawing from the sampler's
+    generator."""
+    from cvssl_tpu_torch.data import transforms as T
+    sampler = two_stream(cfg.seed)
+    return HostSlices(base, T.RandomGenerator(cfg.patch_size,
+                                              sampler.rng)), sampler
+
+
+def run_host_fit(card, train_ds, val_ds, store_sps, strict):
+    """Phase 7e, the host data path (``device_data=False``) at full
+    width: the host's time to load a batch (RandomGenerator on 24 slices
+    of 232 x 256 and the collate, one thread, as the prefetch thread runs
+    it) and to pin it; a few mean-teacher steps from the pipeline's pinned
+    batches (under sync debug mode "error" if ``strict``); then a
+    200-iteration mean-teacher ``fit`` with one validation and one
+    checkpoint: no store, kernel #1 once each way an iteration, the
+    sampler's state in the checkpoint, slices/s beside the store path's
+    ``fit`` of this run."""
+    import torch
+    from cvssl_tpu_torch.data.pipeline import DataPipeline, pinned
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, fit
+    from cvssl_tpu_torch.utils import checkpoint as ckpt
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    cfg = method_config("mean_teacher", device_data=False,
+                        val_every=HOST_FIT_STEPS, ckpt_every=HOST_FIT_STEPS,
+                        log_every=100, snapshot_root=tmp,
+                        exp="ACDC/smoke_host")
+    ds, sampler = host_data(train_ds, cfg)
+    pipe = DataPipeline(ds, sampler)
+    indices = sampler.epochs()
+    load_s, pin_s = [], []
+    for _ in range(HOST_TIMED_BATCHES):
+        t0 = time.perf_counter()
+        batch = pipe._load_batch(next(indices))
+        t1 = time.perf_counter()
+        pinned(batch)
+        load_s.append(t1 - t0)
+        pin_s.append(time.perf_counter() - t1)
+    load_ms, pin_ms = (float(np.median(v)) * 1e3 for v in (load_s, pin_s))
+    print(f"host batch ({BATCH} slices of {train_ds[0]['image'].shape}, "
+          f"one thread, median of {HOST_TIMED_BATCHES}): transform + "
+          f"collate {load_ms:.2f} ms, pinning {pin_ms:.2f} ms; the step "
+          f"needs {BATCH * 1e3 / load_ms:.1f} slices/s of the host at most")
+
+    engine = Engine(cfg)
+    state = engine.init_state()
+    ds, sampler = host_data(train_ds, cfg)
+    stream = DataPipeline(ds, sampler, pin_memory=True).stream()
+    try:
+        engine.train_step(state, engine.host_batch(next(stream)))
+        for _ in range(HOST_CHECKED_STEPS):
+            batch = next(stream)
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, metrics = engine.train_step(
+                    state, engine.host_batch(batch))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        stream.close()
+    if not math.isfinite(float(metrics["loss"])):
+        raise SystemExit(f"host path step: loss {float(metrics['loss'])}")
+    print(f"host path: {HOST_CHECKED_STEPS} steps from pinned batches"
+          f"{' under sync debug mode error' if strict else ''}, loss "
+          f"{float(metrics['loss']):.4f}")
+    del engine, state
+
+    engine = Engine(cfg)
+    fcd.reset_launches()
+    res = fit(cfg, engine=engine, max_steps=HOST_FIT_STEPS,
+              data=(*host_data(train_ds, cfg), val_ds))
+    torch.cuda.synchronize()
+    launches = dict(fcd.LAUNCHES)
+    if res["iterations"] != HOST_FIT_STEPS or engine.store is not None:
+        raise SystemExit(f"host fit: {res['iterations']} iterations, store "
+                         f"{engine.store}")
+    if any(v != HOST_FIT_STEPS for v in launches.values()):
+        raise SystemExit(f"host fit: launches {launches} in "
+                         f"{HOST_FIT_STEPS} iterations")
+    snap = cfg.snapshot_path()
+    files = sorted(os.listdir(snap))
+    k = HOST_FIT_STEPS
+    for name in (f"iter_{k}.ckpt", f"ema_model_iter_{k}.ckpt",
+                 f"model_iter_{k}.ckpt"):
+        if name not in files:
+            raise SystemExit(f"host fit: no {name} in {files}")
+    meta = ckpt.load_weights(os.path.join(snap, f"model_iter_{k}.ckpt"))[
+        "meta"]
+    if set(meta.get("data", {})) != {"rng", "primary", "p_pos", "secondary",
+                                     "s_pos"}:
+        raise SystemExit(f"host fit: no sampler state in the checkpoint "
+                         f"({sorted(meta)})")
+    print(f"host fit to {k} (device_data=False): "
+          f"{res['slices_per_sec']:.2f} slices/s including validation and "
+          f"checkpoints, beside the store path's {store_sps[0]:.2f} (fit to "
+          f"{FIT_STEPS} above); val pass "
+          f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
+          f"{launches}, best dice {res['best_dice']}, on {card}")
+    print(f"host fit files: {files}")
+
+
+def run_cc_fit(card, train_ds, val_ds):
+    """Phase 7f: ``fit`` of contrastive_cross at north-star config 4's size
+    (a UNet and SwinUnet-tiny with the four heads, batch 16 = 8 + 8 at
+    224^2) from the store's ``weak`` mode, 100 iterations with one
+    validation of both slots and one checkpoint: the dual-model files and
+    no head files (the heads are in the full state only), two launches of
+    kernel #1 each way an iteration."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, fit
+    from cvssl_tpu_torch.utils import checkpoint as ckpt
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cc_")
+    cfg = vit_config("contrastive_cross", val_every=CC_FIT_STEPS,
+                     ckpt_every=CC_FIT_STEPS, log_every=50,
+                     snapshot_root=tmp, exp="ACDC/smoke_cc",
+                     patch_size2=(VIT_PATCH, VIT_PATCH))
+    engine = Engine(cfg)
+    fcd.reset_launches()
+    res = fit(cfg, engine=engine, max_steps=CC_FIT_STEPS,
+              data=(train_ds, two_stream(cfg.seed, VIT_BATCH,
+                                         VIT_LABELED_BS), val_ds))
+    torch.cuda.synchronize()
+    launches = dict(fcd.LAUNCHES)
+    if res["iterations"] != CC_FIT_STEPS or engine.store.mode != "weak":
+        raise SystemExit(f"contrastive_cross fit: {res['iterations']} "
+                         f"iterations, store mode {engine.store.mode}")
+    if any(v != 2 * CC_FIT_STEPS for v in launches.values()):
+        raise SystemExit(f"contrastive_cross fit: launches {launches} in "
+                         f"{CC_FIT_STEPS} iterations")
+    if (len(res["val_seconds"]) != 2
+            or set(res["best_dice"]) != {"model1", "model2"}):
+        raise SystemExit(f"contrastive_cross fit: {len(res['val_seconds'])}"
+                         f" validations of {sorted(res['best_dice'])}")
+    snap = cfg.snapshot_path()
+    files = sorted(os.listdir(snap))
+    k = CC_FIT_STEPS
+    for name in (f"model1_iter_{k}.ckpt", f"model2_iter_{k}.ckpt",
+                 f"model_iter_{k}.ckpt"):
+        if name not in files:
+            raise SystemExit(f"contrastive_cross fit: no {name} in {files}")
+    if any(h in f for f in files for h in ("ema", "classifier", "projector")):
+        raise SystemExit(f"contrastive_cross fit: head or EMA files {files}")
+    full = ckpt.load_weights(os.path.join(snap, f"model_iter_{k}.ckpt"))
+    if set(full["state"]["optimizers"]) != {"model1", "model2"} or \
+            len(full["state"]["models"]) != 6:
+        raise SystemExit("contrastive_cross fit: full state of "
+                         f"{sorted(full['state']['models'])}, optimizers "
+                         f"{sorted(full['state']['optimizers'])}")
+    print(f"contrastive_cross fit to {k} (UNet + SwinUnet + heads, batch "
+          f"{VIT_BATCH} at {VIT_PATCH}^2, weak store): "
+          f"{res['slices_per_sec']:.2f} slices/s including validation and "
+          f"checkpoints, val passes "
+          f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
+          f"{launches}, best dice {res['best_dice']}, on {card}")
+    print(f"contrastive_cross fit files: {files}")
 
 
 def main(argv=None) -> int:
@@ -1473,7 +1715,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {name}; "
           f"rates {mem_bw / 1e12} TB/s, {f32_rate / 1e12} TFLOP/s f32, "
           f"{tf32_rate / 1e12} TFLOP/s TF32 tensor; "
-          f"h5py installed: {importlib.util.find_spec('h5py') is not None}")
+          f"h5py installed: {importlib.util.find_spec('h5py') is not None}"
+          f"; PIL installed: {importlib.util.find_spec('PIL') is not None}")
 
     if args.conv_only:
         wait("conv3x3_p8")
@@ -1501,7 +1744,7 @@ def main(argv=None) -> int:
     conv_err = check_conv(device)
     conv_timing = time_conv(device, mem_bw, tf32_rate)
     conv_launches = drive_conv(device)
-    run_fit(device, smi)
+    run_fit(device, smi, strict)
 
     source = "cvssl_tpu_torch/csrc/fused_ce_dice.cu"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",

@@ -1,7 +1,8 @@
 """Device-resident 2D dataset + in-step augmentation (port of
 ``cvssl_tpu/data/device_store.py``: ``DeviceSliceStore`` in
-``mode="default"`` with ``gather_augment``, and in ``mode="weak_strong"``
-with ``gather_weak_strong``, FixMatch's weak and strong views).
+``mode="default"`` with ``gather_augment``, in ``mode="weak"`` with
+``gather_weak`` (resize only), and in ``mode="weak_strong"`` with
+``gather_weak_strong``, FixMatch's weak and strong views).
 
 All train slices live on the card, pre-zoomed to the patch size; per step
 only the batch indices cross from the host. The reference's RandomGenerator
@@ -23,22 +24,23 @@ import torch
 from scipy import ndimage
 
 _MAX_ANGLE = 20
-# the JAX store's modes that are ported ("weak" waits for the method that
-# needs it)
-STORE_MODES = ("default", "weak_strong")
+# the JAX store's modes
+STORE_MODES = ("default", "weak", "weak_strong")
 
 
 class DeviceSliceStore:
     """All train slices resident on ``device``, pre-zoomed (order 0) to
     ``patch_size``: images in ``image_dtype``, labels uint8. ``mode``
-    "default" gives every batch the RandomGenerator augmentation,
-    "weak_strong" FixMatch's WeakStrongAugment (``dataset.py:211-245``)."""
+    "default" gives every batch the RandomGenerator augmentation, "weak"
+    none (the reference's resize-only ``RandomGenerator_w``,
+    ``dataset.py:196``), "weak_strong" FixMatch's WeakStrongAugment
+    (``dataset.py:211-245``)."""
 
     def __init__(self, dataset, patch_size: Tuple[int, int],
                  image_dtype=torch.bfloat16, device="cuda",
                  mode: str = "default"):
         if mode not in STORE_MODES:
-            raise ValueError(f"store mode {mode!r} is not ported; ported: "
+            raise ValueError(f"no store mode {mode!r}; the modes: "
                              f"{STORE_MODES}")
         self.mode = mode
         device = torch.device(device)
@@ -70,6 +72,8 @@ class DeviceSliceStore:
             draws = draw_weak_strong(indices.shape[0], generator,
                                      images.device)
             return gather_weak_strong(images, labels, indices, draws)
+        if self.mode == "weak":
+            return gather_weak(images, labels, indices)
         draws = draw_augment(indices.shape[0], generator, images.device)
         return gather_augment(images, labels, indices, draws)
 
@@ -203,6 +207,16 @@ def gather_augment(images: torch.Tensor, labels: torch.Tensor,
     contiguous = torch.contiguous_format
     return {"image": img.to(torch.float32, memory_format=contiguous)[:, None],
             "label": lab.to(torch.int32, memory_format=contiguous),
+            "idx": indices.to(torch.int32)}
+
+
+def gather_weak(images: torch.Tensor, labels: torch.Tensor,
+                indices: torch.Tensor):
+    """Batch assembly without augmentation and without draws: gather rows,
+    NCHW float32 image + int32 label. JAX: ``device_store.gather_augment``
+    with ``augment=False``."""
+    return {"image": images[indices].to(torch.float32)[:, None],
+            "label": labels[indices].to(torch.int32),
             "idx": indices.to(torch.int32)}
 
 

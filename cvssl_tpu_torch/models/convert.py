@@ -1,5 +1,5 @@
 """Flax weights <-> the port's ``state_dict``, for the UNet family, the
-discriminator and SwinUnet.
+discriminator, SwinUnet and the contrastive heads.
 
 Takes the numpy trees (``params``, ``batch_stats``) of a ``cvssl_tpu``
 UNet-family model on its plain path, of its ``FCDiscriminator`` or of its
@@ -32,6 +32,10 @@ is ``layers_up.{j}.blocks.{d}``, ``up_0`` is ``layers_up.0``, ``up_{j}`` is
 ``patch_embed.norm``, and each ``Mlp``'s ``Dense_0``/``Dense_1`` are
 ``mlp.fc1``/``mlp.fc2``. Its stage depths are read off the tree converted.
 
+The contrastive heads keep the reference's names: ``conv_{i}.conv`` and
+``conv_{i}.bn`` are Flax's ``_ConvBNRelu_{i-1}``'s ``Conv_0`` and
+``BatchNorm_0``, the classifier's ``final`` its ``Conv_0``.
+
 Conv kernels go from (kh, kw, in, out) to (out, in, kh, kw), Dense kernels
 from (in, out) to (out, in); LayerNorm's ``scale`` is ``weight``.
 """
@@ -56,16 +60,19 @@ def _conv(port: str, path: Tuple[str, ...]) -> List[Leaf]:
             (f"{port}.bias", "params", path + ("bias",), "plain")]
 
 
+def _batch_norm(bn: str, p: Tuple[str, ...]) -> List[Leaf]:
+    return [(f"{bn}.weight", "params", p + ("scale",), "plain"),
+            (f"{bn}.bias", "params", p + ("bias",), "plain"),
+            (f"{bn}.running_mean", "batch_stats", p + ("mean",), "plain"),
+            (f"{bn}.running_var", "batch_stats", p + ("var",), "plain"),
+            (f"{bn}.num_batches_tracked", "", (), "count")]
+
+
 def _convblock(port: str, path: Tuple[str, ...]) -> List[Leaf]:
     out = []
     for i, (conv_i, bn_i) in enumerate(((0, 1), (4, 5))):
         out += _conv(f"{port}.{conv_i}", path + (f"Conv_{i}",))
-        bn, p = f"{port}.{bn_i}", path + (f"BatchNorm_{i}",)
-        out += [(f"{bn}.weight", "params", p + ("scale",), "plain"),
-                (f"{bn}.bias", "params", p + ("bias",), "plain"),
-                (f"{bn}.running_mean", "batch_stats", p + ("mean",), "plain"),
-                (f"{bn}.running_var", "batch_stats", p + ("var",), "plain"),
-                (f"{bn}.num_batches_tracked", "", (), "count")]
+        out += _batch_norm(f"{port}.{bn_i}", path + (f"BatchNorm_{i}",))
     return out
 
 
@@ -106,6 +113,17 @@ def _discriminator() -> List[Leaf]:
                    "dense:conv4.bias"),
                   ("classifier.bias", "params", ("Dense_0", "bias"),
                    "plain")]
+
+
+def _head(blocks: int, final: bool) -> List[Leaf]:
+    """A contrastive head: ``conv_{i}.conv``/``.bn`` are Flax's
+    ``_ConvBNRelu_{i-1}``, the classifier's ``final`` its ``Conv_0``."""
+    out = []
+    for i in range(blocks):
+        p = (f"_ConvBNRelu_{i}",)
+        out += (_conv(f"conv_{i + 1}.conv", p + ("Conv_0",))
+                + _batch_norm(f"conv_{i + 1}.bn", p + ("BatchNorm_0",)))
+    return out + (_conv("final", ("Conv_0",)) if final else [])
 
 
 def _dense(port: str, path: Tuple[str, ...], bias: bool = True
@@ -193,6 +211,10 @@ def leaves(net_type: str, depths: Sequence[int] = (2, 2, 2, 2)
         return _discriminator()
     if net_type in ("swin_unet", "ViT_Seg"):
         return _swin_unet(depths)
+    if net_type == "projector":
+        return _head(2, final=False)
+    if net_type == "classifier":
+        return _head(3, final=True)
     enc = _encoder("encoder", ("Encoder_0",))
     if net_type == "unet":
         return enc + _decoder("decoder", ("Decoder_0",))

@@ -1,12 +1,12 @@
 """2D model registry (port of ``cvssl_tpu/models/factory.py``; the UNet
-family, the discriminator and SwinUnet so far)."""
+family, the discriminator, SwinUnet and the contrastive heads so far)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from torch import nn
 
-from cvssl_tpu_torch.models import discriminator, swin_unet, unet
+from cvssl_tpu_torch.models import discriminator, projector, swin_unet, unet
 
 _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "unet": lambda in_chns, class_num, **kw: unet.UNet(
@@ -26,6 +26,11 @@ _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     # one or three input channels (one is repeated, as ViT_seg does)
     "swin_unet": lambda in_chns, class_num, **kw: swin_unet.SwinUnet(
         num_classes=class_num, **kw),
+    # the contrastive heads take the logit map: class_num input channels
+    "projector": lambda in_chns, class_num, **kw: projector.Projector(
+        in_channels=class_num, **kw),
+    "classifier": lambda in_chns, class_num, **kw: projector.Classifier(
+        in_channels=class_num, **kw),
 }
 _REGISTRY_2D["ViT_Seg"] = _REGISTRY_2D["swin_unet"]
 

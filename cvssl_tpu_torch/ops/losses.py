@@ -1,4 +1,4 @@
-"""Segmentation + SSL losses on the mean-teacher path (port of
+"""Segmentation, SSL and patch-contrastive losses (port of
 ``cvssl_tpu/ops/losses.py``).
 
 The class axis defaults to 1 (NCHW), as in the original torch code; the JAX
@@ -80,3 +80,52 @@ def dice_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     ce = cross_entropy(logits, labels, axis=axis)
     dl = dice_loss(logits, labels, num_classes, softmax=True, axis=axis)
     return 0.5 * (ce + dl)
+
+
+# ---------------------------------------------------------------------------
+# Contrastive family (JAX ``losses.py:322-362``)
+# ---------------------------------------------------------------------------
+
+def _l1_normalize(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``F.normalize(p=1)``: divide by the L1 norm clamped to 1e-12."""
+    n = torch.clamp(torch.sum(torch.abs(x), dim=axis, keepdim=True),
+                    min=1e-12)
+    return x / n
+
+
+def _patch_nce(feat_q: torch.Tensor, feat_k: torch.Tensor,
+               temperature: float, pos_from_dot: bool) -> torch.Tensor:
+    """Patch-NCE over the spatial sites of (B, C, ...) features, flattened
+    H-major: each query site's positive is the key at the same site, its
+    negatives the key's other sites (the diagonal of ``l_neg`` is -inf).
+    The key side carries no gradient. As in the reference, the features
+    are L1-normalised, not L2. JAX: ``losses._patch_nce``."""
+    b, c = feat_q.shape[0], feat_q.shape[1]
+    q = _l1_normalize(_upcast(feat_q).reshape(b, c, -1).transpose(1, 2))
+    k = _l1_normalize(_upcast(feat_k).reshape(b, c, -1).transpose(1, 2))
+    k = k.detach()
+    npatches = q.shape[1]
+    l_pos = torch.sum(q * k, dim=-1).reshape(-1, 1)         # (B*NP, 1)
+    l_neg = torch.bmm(q, k.transpose(1, 2))                 # (B, NP, NP)
+    eye = torch.eye(npatches, dtype=torch.bool, device=q.device)[None]
+    l_neg = l_neg.masked_fill(eye, float("-inf")).reshape(-1, npatches)
+    if not pos_from_dot:
+        l_pos = torch.zeros_like(l_pos)
+    logits = torch.cat([l_pos, l_neg], dim=1) / temperature
+    # cross entropy with the positive slot (class 0) as the target
+    return torch.mean(-F.log_softmax(logits, dim=-1)[:, 0])
+
+
+def con_loss(feat_q: torch.Tensor, feat_k: torch.Tensor,
+             temperature: float = 0.07) -> torch.Tensor:
+    """Patch-NCE of unlabeled features (the reference's ``ConLoss``).
+    JAX: ``losses.con_loss``."""
+    return _patch_nce(feat_q, feat_k, temperature, pos_from_dot=True)
+
+
+def contrastive_loss_sup(feat_q: torch.Tensor, feat_k: torch.Tensor,
+                         temperature: float = 0.07) -> torch.Tensor:
+    """Supervised patch contrastive loss. The reference defines it twice
+    and Python keeps the second definition, whose positive is the dot
+    product; so does this. JAX: ``losses.contrastive_loss_sup``."""
+    return _patch_nce(feat_q, feat_k, temperature, pos_from_dot=True)

@@ -33,3 +33,16 @@ def linear_rampup(current, rampup_length) -> float:
         return 1.0
     return float(np.clip(np.float32(current) / np.float32(rampup_length),
                          0.0, 1.0))
+
+
+def ramp_up_function(epoch, epoch_with_max_rampup: int = 80) -> float:
+    """The temporal-ensembling ramp exp(-5 (1 - e / max)^2), in float32,
+    switching to 1 exactly at ``epoch_with_max_rampup``. A host function of
+    the epoch index, so a step that uses it makes no device
+    synchronisation. JAX: ``ramps.ramp_up_function``."""
+    epoch = np.float32(epoch)
+    if epoch >= epoch_with_max_rampup:
+        return 1.0
+    p = np.float32(1.0) - (np.maximum(np.float32(0.0), epoch)
+                           / np.float32(epoch_with_max_rampup))
+    return float(np.exp(np.float32(-5.0) * p * p))

@@ -1,4 +1,4 @@
-"""Optimizers and LR schedule (port of ``cvssl_tpu/ops/schedules.py``)."""
+"""Optimizers and LR schedules (port of ``cvssl_tpu/ops/schedules.py``)."""
 from __future__ import annotations
 
 from typing import Callable, Iterable
@@ -15,6 +15,27 @@ def poly_lr(base_lr: float, max_iterations: int,
         frac = np.float32(1.0) - np.float32(step) / np.float32(max_iterations)
         return float(np.float32(base_lr)
                      * np.maximum(frac, np.float32(0.0)) ** np.float32(power))
+    return schedule
+
+
+def two_phase_poly_lr(base_lr: float, max_iterations: int,
+                      drop_to: float = 1e-4,
+                      power: float = 0.9) -> Callable[[int], float]:
+    """The contrastive trainers' rule, in float32: ``poly_lr`` until half
+    the iterations, then a restart from ``drop_to`` decaying at half the
+    rate. JAX: ``schedules.two_phase_poly_lr``."""
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        t = f32(step)
+        if t / f32(max_iterations) > f32(0.5):
+            frac = f32(1.0) - (t - f32(max_iterations * 0.5)) \
+                / f32(max_iterations) * f32(0.5)
+            base = f32(drop_to)
+        else:
+            frac = f32(1.0) - t / f32(max_iterations)
+            base = f32(base_lr)
+        return float(base * np.maximum(frac, f32(0.0)) ** f32(power))
     return schedule
 
 
@@ -42,6 +63,18 @@ class ReferenceSGD(torch.optim.SGD):
         loss = super().step(closure)
         self.count += 1
         return loss
+
+
+class TwoPhaseReferenceSGD(ReferenceSGD):
+    """``ReferenceSGD`` on ``two_phase_poly_lr``: the contrastive methods'
+    segmenter optimizer. JAX: ``schedules.two_phase_reference_sgd``."""
+
+    def __init__(self, params: Iterable[torch.Tensor], base_lr: float,
+                 max_iterations: int, momentum: float = 0.9,
+                 weight_decay: float = 1e-4):
+        super().__init__(params, base_lr, max_iterations, momentum,
+                         weight_decay)
+        self.schedule = two_phase_poly_lr(base_lr, max_iterations)
 
 
 class DiscriminatorAdam(torch.optim.Adam):

@@ -53,7 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_every", type=int, default=d.val_every)
     p.add_argument("--ckpt_every", type=int, default=d.ckpt_every)
     p.add_argument("--num_workers", type=int, default=d.num_workers,
-                   help="inert: the port trains from the device store")
+                   help="inert: the host pipeline loads samples one "
+                        "after another in one prefetch thread, so its "
+                        "generator is drawn in a fixed order")
     p.add_argument("--rng_impl", type=str, default=d.rng_impl,
                    choices=["auto", "threefry", "rbg"],
                    help="inert: JAX PRNG implementation")

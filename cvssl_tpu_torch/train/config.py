@@ -10,8 +10,10 @@ TPU are accepted and inert here:
   ``torch.Generator``s.
 * ``compile_cache``: XLA's persistent compilation cache.
 * ``dcn_slices``: mesh folding across TPU hosts.
-* ``num_workers``: host data-pipeline workers; the port trains from the
-  device-resident store only.
+* ``num_workers``: host data-pipeline workers; as in JAX, the host
+  pipeline loads samples one after another, on purpose, in one prefetch
+  thread, so that the generator it shares with the sampler is drawn in a
+  fixed order (``data/pipeline.py``).
 
 ``num_devices`` must be None or 1: the port trains on one card so far.
 ``fused_loss`` must be None or True: the fused CE+Dice kernel is always on.
@@ -69,7 +71,8 @@ class TrainConfig:
 
     # engine
     device_data: bool = True           # 2D: dataset resident on the card,
-                                       # augmentation inside the step
+                                       # augmentation inside the step;
+                                       # False: the host pipeline
     # fused CE+Dice kernel (ops/fused_ce_dice.py): always on, as the port
     # has no s2d grouped-logits losses, the only case the JAX package turns
     # it off for. None or True; False raises.

@@ -1,7 +1,8 @@
 """The training engine (port of ``cvssl_tpu/train/engine.py``: state
 construction, the step body, the device-store path, a K-step loop standing
-in for ``train_steps_scan``, the eval-mode predictor, 2D validation, and the
-``fit`` loop with its validation and checkpoint cadence).
+in for ``train_steps_scan``, the host pipeline's batches, the eval-mode
+predictor, 2D validation, and the ``fit`` loop with its validation and
+checkpoint cadence).
 
 One step: zero the gradients, run the method's loss through a ``StepCtx``
 (student and teacher forwards in train mode, each model under bfloat16
@@ -32,8 +33,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from cvssl_tpu_torch.data import transforms as T
 from cvssl_tpu_torch.data.datasets import SliceDataset
 from cvssl_tpu_torch.data.device_store import STORE_MODES, DeviceSliceStore
+from cvssl_tpu_torch.data.pipeline import DataPipeline
 from cvssl_tpu_torch.data.sampler import (ShuffleBatchSampler,
                                           TwoStreamBatchSampler)
 from cvssl_tpu_torch.eval import val2d
@@ -81,10 +84,16 @@ class Engine:
         teachers = {}
         for name in self.method.teacher_names:
             teachers[name] = copy.deepcopy(models[name]).requires_grad_(False)
+        optimizers = self.method.optimizers(models)
+        # a model in no optimizer (the contrastive heads) keeps its initial
+        # weights: no gradient is kept for it
+        for name, model in models.items():
+            if name not in optimizers:
+                model.requires_grad_(False)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         return TrainState(step=0, models=models,
-                          optimizers=self.method.optimizers(models),
+                          optimizers=optimizers,
                           teachers=teachers, generator=generator,
                           extra=self.method.init_extra())
 
@@ -151,6 +160,13 @@ class Engine:
         batch = self.store.batch_fn(self.store.arrays(),
                                     self._indices(indices), state.generator)
         return self.train_step(state, batch)
+
+    def host_batch(self, batch: dict) -> dict:
+        """A batch of the host pipeline (numpy arrays, or tensors in pinned
+        memory) on the engine's device; copies from pinned memory do not
+        block the host."""
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
 
     def train_steps(self, state: TrainState, indices_matrix):
         """K steps, one per row of ``indices_matrix`` (K, B); returns
@@ -243,17 +259,27 @@ class Engine:
 # The full training loop (reference ``train()`` parity)
 # ---------------------------------------------------------------------------
 
-def build_2d_data(cfg: TrainConfig, supervised_only: bool):
-    """Datasets + sampler per the reference recipe, for the device-store
-    path (no host transform: augmentation runs in the step). JAX:
-    ``build_2d_data(..., raw=True)``."""
+def build_2d_data(cfg: TrainConfig, supervised_only: bool,
+                  transform_name: str = "default", raw: bool = False):
+    """Datasets + sampler per the reference recipe. ``raw=True`` leaves the
+    host transform out (the device-store path: augmentation runs in the
+    step); otherwise the host transform of ``transform_name`` shares the
+    sampler's generator. JAX: ``engine.build_2d_data``."""
     rng = np.random.default_rng(cfg.seed)
+    if raw:
+        transform = None
+    elif transform_name == "weak_strong":
+        transform = T.WeakStrongAugment(cfg.patch_size, rng)
+    elif transform_name == "weak":
+        transform = T.RandomGeneratorWeak(cfg.patch_size, rng)
+    else:
+        transform = T.RandomGenerator(cfg.patch_size, rng)
     if supervised_only:
         train_ds = SliceDataset(cfg.root_path, "train",
-                                num=cfg.labeled_slices)
+                                num=cfg.labeled_slices, transform=transform)
         sampler = ShuffleBatchSampler(len(train_ds), cfg.batch_size, rng)
     else:
-        train_ds = SliceDataset(cfg.root_path, "train")
+        train_ds = SliceDataset(cfg.root_path, "train", transform=transform)
         labeled = list(range(cfg.labeled_slices))
         unlabeled = list(range(cfg.labeled_slices, len(train_ds)))
         sampler = TwoStreamBatchSampler(labeled, unlabeled, cfg.batch_size,
@@ -271,9 +297,6 @@ def _check_ported(cfg: TrainConfig, method: Method):
         raise NotImplementedError(
             f"method {cfg.method!r} needs the {method.transform!r} "
             "augmentation, which is not ported yet")
-    if not cfg.device_data:
-        raise NotImplementedError("device_data=False: the host data "
-                                  "pipeline is not ported yet")
     if cfg.profile_dir:
         raise NotImplementedError("profile_dir: the step-window profiler "
                                   "is not ported yet")
@@ -291,12 +314,19 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     checkpoints, resume from the newest full-state checkpoint.
 
     ``data`` is the (train_ds, sampler, val_ds) triple of
-    :func:`build_2d_data`; None builds it from ``cfg.root_path``. The engine
+    :func:`build_2d_data` (for the host path, with the transform on
+    ``train_ds``); None builds it from ``cfg.root_path``. The engine
     defaults to ``Engine(cfg, device=device)``.
 
-    One difference from the JAX loop: a resumed run skips the first
-    ``step`` batches of the index stream, so it sees the batches the
-    uninterrupted run would have and ends bit-equal to it."""
+    The batches come from the device store, or with ``device_data=False``
+    from the host pipeline (``DataPipeline.stream()``, one step a batch,
+    pinned and copied to the card without blocking), as JAX's rule picks.
+
+    One difference from the JAX loop: a resumed run sees the batches the
+    uninterrupted run would have and ends bit-equal to it. The store path
+    skips the first ``step`` batches of the index stream; the host path
+    continues the stream from the sampler state saved with the checkpoint
+    (the state after the batches taken, not the prefetch thread's)."""
     engine = engine or Engine(cfg, device=device)
     _check_ported(cfg, engine.method)
     snapshot = cfg.snapshot_path()
@@ -310,14 +340,24 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
         logger.info("--deterministic 0: entropy seed %d", entropy_seed)
     logger.info("config: %s", cfg)
 
+    # JAX's rule (``engine.py:555-557``) also sends the ``cta`` transform
+    # to the host; ``_check_ported`` has raised for it
+    use_store = cfg.device_data
     train_ds, sampler, val_ds = data or build_2d_data(
-        cfg, engine.method.supervised_only)
-    engine.attach_store(DeviceSliceStore(train_ds, cfg.patch_size,
-                                         device=engine.device,
-                                         mode=engine.method.transform))
-    index_stream = sampler.epochs()
-    logger.info("device-resident dataset: %d samples on %s", len(train_ds),
-                engine.device)
+        cfg, engine.method.supervised_only, engine.method.transform,
+        raw=use_store)
+    if use_store:
+        engine.attach_store(DeviceSliceStore(train_ds, cfg.patch_size,
+                                             device=engine.device,
+                                             mode=engine.method.transform))
+        index_stream = sampler.epochs()
+        logger.info("device-resident dataset: %d samples on %s",
+                    len(train_ds), engine.device)
+    else:
+        pipe = DataPipeline(train_ds, sampler, num_workers=cfg.num_workers,
+                            pin_memory=engine.device.type == "cuda")
+        logger.info("host data pipeline: %d samples, one prefetch thread",
+                    len(train_ds))
     state = engine.init_state(seed=cfg.seed)
 
     # resume if a full-state checkpoint exists (with best_dice, so the
@@ -327,10 +367,15 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     if tree is not None:
         state = ckpt.load_state_tree(state, tree)
         best_dice.update(meta.get("best_dice", {}))
-        for _ in range(state.step):
-            next(index_stream)
+        if use_store:
+            for _ in range(state.step):
+                next(index_stream)
         logger.info("resumed from iteration %d (best_dice %s)", start_it,
                     best_dice)
+    # the host stream continues from the sampler state saved with the
+    # checkpoint: the state after the batches the saved steps took
+    stream = None if use_store else pipe.stream(
+        meta.get("data") if tree is not None else None)
 
     max_iterations = max_steps or cfg.max_iterations
     saver = ckpt.AsyncWriter()
@@ -340,13 +385,19 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     it = state.step
     try:
         while it < max_iterations:
-            # K steps per call, never across a log, val or ckpt boundary
-            n = min(cfg.scan_steps, cfg.log_every - it % cfg.log_every,
-                    cfg.val_every - it % cfg.val_every,
-                    cfg.ckpt_every - it % cfg.ckpt_every,
-                    max_iterations - it)
-            state, metrics = engine.train_steps(
-                state, [next(index_stream) for _ in range(n)])
+            if stream is not None:
+                n = 1
+                state, metrics = engine.train_step(
+                    state, engine.host_batch(next(stream)))
+            else:
+                # K steps per call, never across a log, val or ckpt
+                # boundary
+                n = min(cfg.scan_steps, cfg.log_every - it % cfg.log_every,
+                        cfg.val_every - it % cfg.val_every,
+                        cfg.ckpt_every - it % cfg.ckpt_every,
+                        max_iterations - it)
+                state, metrics = engine.train_steps(
+                    state, [next(index_stream) for _ in range(n)])
             it += n
             images_seen += n * cfg.batch_size
 
@@ -398,6 +449,8 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
                 eval_names = list(engine.method.eval_model_names())
                 teacher_names = list(engine.method.teacher_names)
                 meta = {"best_dice": dict(best_dice)}
+                if stream is not None:
+                    meta["data"] = pipe.consumed_state
 
                 def _save_state(s=snap, k=it, m=meta):
                     host = ckpt.to_host(s)
@@ -421,6 +474,8 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     except BaseException:
         # a failed step or validation must not strand queued checkpoint
         # jobs; drain the writer but never mask the original error
+        if stream is not None:
+            stream.close()
         try:
             saver.close()
         except Exception:
@@ -429,6 +484,8 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
         writer.close()
         raise
 
+    if stream is not None:
+        stream.close()      # stops the prefetch thread
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     elapsed = time.time() - t0

@@ -16,3 +16,5 @@ from cvssl_tpu_torch.train.methods import exam  # noqa: F401
 from cvssl_tpu_torch.train.methods import cross_teaching  # noqa: F401
 from cvssl_tpu_torch.train.methods import cnn_meet_vit  # noqa: F401
 from cvssl_tpu_torch.train.methods import tripleview  # noqa: F401
+from cvssl_tpu_torch.train.methods import adversarial_consistency  # noqa: F401
+from cvssl_tpu_torch.train.methods import contrastive  # noqa: F401

@@ -523,3 +523,103 @@ def test_compute_dtype_follows_the_net_as_in_jax(method, model):
                 torch.testing.assert_close(x.detach(), y.detach(), rtol=0,
                                            atol=1e-5 * scale)
     assert all_f32 == (slots["model"] != "unet")
+
+
+# ---------------------------------------------------------------------------
+# adversarial_consistency: SwinUnet + discriminator, ICT mixing, EMA teacher
+# ---------------------------------------------------------------------------
+
+AC_B, AC_LB = 8, 4       # lb >= 4: the discriminator's input quirk shows
+
+
+@pytest.fixture(scope="module")
+def ac_step():
+    """One step of adversarial_consistency at consistency weight 1 on a
+    two-stage SwinUnet at 32^2 (``test_torch_port_vit_methods.VIT``) and
+    the discriminator, batch 8 = 4 labeled + 4 unlabeled."""
+    from cvssl_tpu.models import swin_unet as jswin
+    from cvssl_tpu_torch.models import swin_unet as tswin
+    from test_torch_port_vit_methods import VIT
+    jmods = {"model": jswin.SwinUnet(num_classes=C, **VIT),
+             "dan": jdisc.FCDiscriminator(num_classes=C, ndf=NDF)}
+
+    def port(slot):
+        if slot == "model":
+            return tswin.SwinUnet(num_classes=C, img_size=32, **VIT)
+        return tdisc.FCDiscriminator(C, 1, ndf=NDF, patch_size=(32, 32))
+    rng = np.random.default_rng(6)
+    batch = {"image": rng.normal(0.5, 0.25, (AC_B, 32, 32, 1)).astype(
+        np.float32),
+        "label": rng.integers(0, C, (AC_B, 32, 32)).astype(np.int32)}
+    return run_step("adversarial_consistency", jmods, port, batch, seed=6,
+                    nets={"model": "swin_unet", "dan": "discriminator"},
+                    model="swin_unet", batch_size=AC_B, labeled_bs=AC_LB,
+                    labeled_slices_override=AC_LB, s2d_loss="off")
+
+
+def test_adversarial_consistency_metrics_and_gradients_match_jax(ac_step):
+    """Loss and metrics within 1e-5 relative (both phases'); the SwinUnet's
+    gradients against the generator phase's, the discriminator's against
+    the discriminator phase's."""
+    r = ac_step
+    j, t = r["jmetrics"], r["tmetrics"]
+    assert set(j) == set(t), (sorted(j), sorted(t))
+    for k in j:
+        assert float(t[k]) == pytest.approx(float(j[k]), rel=1e-5), k
+    assert float(j["consistency_weight"]) == 1.0
+    assert float(t["ict_loss"]) > 0.0
+    g_phase, d_phase = r["jgrads"]
+    assert set(g_phase) == {"model"} and set(d_phase) == {"dan"}
+    for n, want in (("model", g_phase["model"]), ("dan", d_phase["dan"])):
+        model = r["tstate"].models[n]
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        grads.update({k: torch.zeros_like(b)
+                      for k, b in model.named_buffers()})
+        _assert_tree_close(flax_from_state_dict(r["nets"][n], grads)[0],
+                           want)
+
+
+def test_adversarial_consistency_updates_match_jax(ac_step):
+    """The SwinUnet after SGD and its EMA teacher, each element within
+    2e-2 of the largest delta from the initial weights plus float32
+    rounding; one update of each optimizer."""
+    r = ac_step
+    js, ts = r["jstate"], r["tstate"]
+    for want, got in ((js.params["model"], ts.models["model"]),
+                      (js.teacher_params["model"], ts.teachers["model"])):
+        got_p = flax_from_state_dict("swin_unet", {
+            k: v.detach() for k, v in got.state_dict().items()})[0]
+        deltas = [np.asarray(a) - np.asarray(b) for a, b in zip(
+            jax.tree_util.tree_leaves(want),
+            jax.tree_util.tree_leaves(r["p0"]["model"]))]
+        scale = max(float(np.abs(d).max()) for d in deltas)
+        assert scale > 0.0
+        for a, b in zip(jax.tree_util.tree_leaves(want),
+                        jax.tree_util.tree_leaves(got_p)):
+            np.testing.assert_allclose(b, np.asarray(a), rtol=1e-6,
+                                       atol=2e-2 * scale)
+    assert {n: o.count for n, o in ts.optimizers.items()} == {"model": 1,
+                                                              "dan": 1}
+    assert set(ts.teachers) == set(js.teacher_params) == {"model"}
+
+
+def test_adversarial_consistency_draws_and_dan_input(ac_step):
+    """The draws in JAX's order: one Beta(alpha, alpha) of (half, 1, 1, 1)
+    for the mixing, the student's stochastic-depth masks, then each
+    teacher pass's own (u0, then u1: train mode), then the discriminator
+    phase's two channel-dropout masks. The generator phase's discriminator
+    runs in eval mode on the reference's rows: from lb // 2 on, so 2
+    labeled rows and the 2 mixed ones."""
+    from test_torch_port_vit_methods import VIT_MASKS
+    r = ac_step
+    kinds = [k for k, _ in r["draws"].log]
+    assert kinds == ["beta"] + ["keep"] * (3 * VIT_MASKS) + ["keep", "keep"]
+    assert r["draws"].of("beta")[0].shape == ((AC_B - AC_LB) // 2, 1, 1, 1)
+    modes = [training for training, _ in r["dan_out"]]
+    assert modes == [False, True]
+    half = (AC_B - AC_LB) // 2
+    assert r["dan_out"][0][1].shape == (AC_LB // 2 + half, 2)
+    assert r["dan_out"][1][1].shape == (AC_B, 2)
+    _, d_out = r["dan_out"][1]
+    gap = (d_out[:, 0] - d_out[:, 1]).detach().abs()
+    assert float(gap.min()) > MARGIN

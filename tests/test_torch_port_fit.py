@@ -443,6 +443,15 @@ def test_fit_raises_for_what_is_not_ported(trees, tmp_path, change):
           "pretrained": dict(pretrained_ckpt=str(tmp_path / "missing.pth"))
           }.get(change, {})
     cfg = _fit_cfg(troot, tmp_path, **kw)
+    if change == "host_data":
+        # the host pipeline is ported; the method that needs it with
+        # CTAugment is not
+        cfg = _fit_cfg(troot, tmp_path, method="contrastive_consistency",
+                       **kw)
+        with pytest.raises(NotImplementedError):
+            fit(cfg, max_steps=1, device="cpu")
+        assert not os.path.exists(cfg.snapshot_path())
+        return
     method = _NarrowMT(cfg)
     if change == "transform":
         method.transform = "cta"      # the host CTAugment path

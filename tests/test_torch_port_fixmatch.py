@@ -184,10 +184,12 @@ def test_weak_strong_store_draws_from_the_generator():
 
 
 def test_store_mode_is_checked():
-    with pytest.raises(ValueError, match="not ported"):
-        tds.DeviceSliceStore(_Slices(), (32, 32), device="cpu", mode="weak")
+    with pytest.raises(ValueError, match="store mode"):
+        tds.DeviceSliceStore(_Slices(), (32, 32), device="cpu", mode="cta")
     assert tds.DeviceSliceStore(_Slices(), (32, 32),
                                 device="cpu").mode == "default"
+    assert tds.DeviceSliceStore(_Slices(), (32, 32), device="cpu",
+                                mode="weak").mode == "weak"
 
 
 def test_normalize_softmax_matches_jax():
