@@ -9,8 +9,8 @@ started at once in the background), then runs, in order; any failure ends
 the run with a non-zero exit:
 
 1. device: CUDA must be available; prints the card's name and power limit,
-   and whether ``h5py`` and ``PIL`` are installed (the fit phase needs
-   neither; CTAugment, not ported yet, uses PIL in JAX);
+   and whether ``h5py`` and ``PIL`` are installed (the fit phase needs no
+   ``h5py``; CTAugment's ops are PIL's);
 2. kernels against their plain version: the fused CE+Dice forward and
    backward (``csrc/fused_ce_dice.cu``) on the card at the main-path shape
    (12, 4, 256, 256), the CNN+ViT methods' (8, 4, 224, 224), a ragged
@@ -69,7 +69,13 @@ the run with a non-zero exit:
    step, every model (and the teachers) moved, the Dice pseudo-supervision
    after step 1000 recomputed from the other model's argmax with a plain
    float64 Dice; then the SwinUnet's predictions and its eval forward in
-   float32 on the card against the CPU;
+   float32 on the card against the CPU; then north-star config 3:
+   SwinUnet-tiny (27,168,228 parameters at 2 classes) fully supervised and
+   with uamt (T = 8), batch 16 = 8 + 8 at 224^2, from a 2-class store of
+   the synthetic slices, the same checks and numbers, kernel #1 once each
+   way a step, uamt's teacher moved and its masked consistency live (its
+   output projection scaled by 8), and its Monte-Carlo teacher counted:
+   one pass over the T * u tiled batch a step, no scan;
 6. the pixel-packed conv kernels (``ops/conv3x3_p8.py``, CUDA): each of the
    three against the plain version run on the card in float64 at
    (24, 256, 256, 16) f32 and bf16 input (tile_h 32), at the JAX tests'
@@ -108,10 +114,23 @@ the run with a non-zero exit:
    mean-teacher ``fit`` with ``device_data=False`` on cell 2's data (one
    validation, one checkpoint, its slices/s beside the store path's);
    then ``fit`` of contrastive_cross at config 4's size, 100 iterations,
-   both slots validated, its files;
+   both slots validated, its files; then contrastive_consistency on the
+   host CTA path at the reference's recipe (two SwinUnet-tiny and four
+   projector heads, batch 16 = 8 + 8 at 224^2, CTAugment on the host): the
+   host's time to transform and collate a CTA batch, a few steps from the
+   pipeline with the method's policies, through ``fit``'s own iteration
+   (``cta_iteration``: the hooks in JAX's order; under sync debug mode
+   "error" where phase 5 ran so) and their ms/step, then a 68-iteration
+   ``fit`` (4 epochs, one validation of both slots, one checkpoint):
+   kernel #1 twice each
+   way an iteration, the policy refreshes, the CTA rates moved,
+   projector1/2 tracking projector3/4, whose weights stay, peak memory
+   and slices/s;
 8. one JSON line of the kernels (kernel #1's with its launches in each
-   method's run of phases 5 and 5b; phase 5b's contrastive_cross as
-   ``contrastive_cross_vit``), then the result line
+   method's run of phases 5 and 5b and in the contrastive_consistency
+   ``fit``; phase 5b's contrastive_cross as ``contrastive_cross_vit``,
+   config 3's methods as ``supervised_swin`` and ``uamt_swin``), then the
+   result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -171,7 +190,8 @@ MODEL_PARAMS = {"unet": 1_813_764, "unet_cct": 3_713_664,
                 "classifier": 7_272}
 # the metric that carries each method's unsupervised term
 CONSISTENCY_KEY = {"fixmatch": "unsup_loss",
-                   "adversarial_consistency": "ict_loss"}
+                   "adversarial_consistency": "ict_loss",
+                   "supervised": None}
 # uamt's output conv (student and teacher) scaled up, so that the MC
 # teacher of a freshly initialised UNet is sure at some sites and the
 # masked consistency term is live (random init alone: every site's entropy
@@ -205,6 +225,24 @@ FIXMATCH_FIT_STEPS = 100       # one validation, one checkpoint
 # synchronising calls, fit iterations (one validation, one checkpoint)
 HOST_TIMED_BATCHES, HOST_CHECKED_STEPS, HOST_FIT_STEPS = 20, 3, 200
 CC_FIT_STEPS = 100             # contrastive_cross at 224^2: one of each
+# north-star config 3 (BASELINE.md): SwinUnet-tiny on Prostate's 2
+# classes, fully supervised and uamt, batch 16 = 8 + 8 at 224^2; kernel
+# #1's launches a step of each (the labeled logits, forward and backward)
+CONFIG3_CLASSES = 2
+CONFIG3_SHAPE = (VIT_LABELED_BS, CONFIG3_CLASSES, VIT_PATCH, VIT_PATCH)
+CONFIG3_LAUNCHES = {"supervised": 1, "uamt": 1}
+MODEL_PARAMS_2 = {"swin_unet": 27_168_228}
+# contrastive_consistency's fit on the host CTA path (the reference's
+# dual SwinUnet-tiny, batch 16 = 8 + 8 at 224^2): iterations (4 epochs of
+# 17, one validation, one checkpoint), CTA batches timed on the host,
+# steps checked for synchronising calls and steps timed from the CTA
+# pipeline
+CCONS_FIT_STEPS, CTA_TIMED_BATCHES = 68, 20
+CTA_CHECKED_STEPS, CTA_TIMED_STEPS = 3, 5
+# one profiled step: the profiler took 22.4 s of the phase over three of
+# these steps (two SwinUnet-tiny and four heads; NVIDIA H100 80GB HBM3,
+# 700 W), and their device time varies by under 1.5% from step to step
+CTA_PROFILED_STEPS = 1
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -219,9 +257,11 @@ class SyntheticACDC:
     """In-memory stand-in with ACDC's slice count and geometry (the port's
     copy of ``bench.py``'s)."""
 
-    def __init__(self, n=ACDC_TRAIN_SLICES, shape=(232, 256)):
+    def __init__(self, n=ACDC_TRAIN_SLICES, shape=(232, 256),
+                 classes=CLASSES):
         self._shape = shape
         self._n = n
+        self._classes = classes
 
     def __len__(self):
         return self._n
@@ -229,7 +269,8 @@ class SyntheticACDC:
     def __getitem__(self, i):
         r = np.random.default_rng(i)
         return {"image": r.normal(0.5, 0.2, self._shape).astype(np.float32),
-                "label": r.integers(0, 4, self._shape).astype(np.uint8)}
+                "label": r.integers(0, self._classes,
+                                    self._shape).astype(np.uint8)}
 
 
 class BlobSlices:
@@ -340,10 +381,12 @@ def offset_view(t):
 
 def check_kernels(device):
     """Phase 2: forward and backward kernels against the float64 plain
-    version, on the vector path (main shape) and the scalar loop (ragged
-    shape, and the main shape at an unaligned offset), at 4 classes and at
-    2 and 16; two calls of each kernel on the same inputs must agree bit
-    for bit. Returns the largest absolute errors seen."""
+    version, on the vector path (the main paths' shapes: the step loop's,
+    the ViT methods' and north-star config 3's 2-class one, with the
+    store's int32 labels) and the scalar loop (ragged shape, and the main
+    shape at an unaligned offset), at 4 classes and at 2 and 16; two calls
+    of each kernel on the same inputs must agree bit for bit. Returns the
+    largest absolute errors seen."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
@@ -352,7 +395,9 @@ def check_kernels(device):
     f32, bf16, i32, u8 = (torch.float32, torch.bfloat16, torch.int32,
                           torch.uint8)
     cases = [(MAIN_SHAPE, f32, i32, False), (MAIN_SHAPE, bf16, i32, False),
-             (VIT_SHAPE, f32, i32, False), (VIT_SHAPE, bf16, i32, False)]
+             (VIT_SHAPE, f32, i32, False), (VIT_SHAPE, bf16, i32, False),
+             (CONFIG3_SHAPE, f32, i32, False),
+             (CONFIG3_SHAPE, bf16, i32, False)]
     cases += [(RAGGED_SHAPE, dt, lt, False) for dt in (f32, bf16)
               for lt in (i32, u8)]
     cases += [(MAIN_SHAPE, f32, i32, True), (MAIN_SHAPE, bf16, u8, True)]
@@ -661,12 +706,15 @@ def run_main_path(device, card):
     return engine, state, store, launches, sps
 
 
-def profile_steps(engine, state, stream, step_s, steps=3, top=15):
+def profile_steps(engine, state, stream, step_s, steps=3, top=15,
+                  step_fn=None):
     """Where the step's device time goes: the ``top`` kernels by device time
     over a few steps, and the device's busy share of the wall time with the
     profiler on. ``step_s``, the wall time of a step without the profiler
-    (another window), gives an estimate of the busy share without it.
-    Returns the device's busy ms per step (None if none was recorded)."""
+    (another window), gives an estimate of the busy share without it. The
+    steps are ``engine.train_steps`` on the store's ``stream``, or
+    ``step_fn()`` calls. Returns the device's busy ms per step (None if none
+    was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,7 +722,11 @@ def profile_steps(engine, state, stream, step_s, steps=3, top=15):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.train_steps(state, [next(stream) for _ in range(steps)])
+        if step_fn is None:
+            engine.train_steps(state, [next(stream) for _ in range(steps)])
+        else:
+            for _ in range(steps):
+                step_fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
@@ -823,13 +875,15 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
     method = engine.cfg.method
+    expected = (MODEL_PARAMS if engine.cfg.num_classes == CLASSES
+                else MODEL_PARAMS_2)
     counts = {}
     for slot, model in state.models.items():
         n = sum(p.numel() for p in model.parameters())
         kind = engine.method.net_types()[slot]
-        if n != MODEL_PARAMS[kind]:
+        if n != expected[kind]:
             raise SystemExit(f"{method} {slot}: {n} parameters, not "
-                             f"{MODEL_PARAMS[kind]} ({kind})")
+                             f"{expected[kind]} ({kind})")
         counts[slot] = n
     # models in no optimizer (contrastive_cross's heads): their weights
     # stay, their BatchNorm statistics move
@@ -885,7 +939,7 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
         # the recording ends here: it would keep every step's maps alive
         # (and the method, whose bound term the spy holds)
         del engine.method.__dict__[PSEUDO_TERM[method]], pseudo
-    if not all(v[cons_key] > 0.0 for v in late):
+    if cons_key is not None and not all(v[cons_key] > 0.0 for v in late):
         raise SystemExit(f"{method}: {cons_key} not > 0 after step "
                          f"1000: {[v[cons_key] for v in late]}")
     for n, m in watched.items():
@@ -922,13 +976,16 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
         extra += (f", loss_d {late[-1]['loss_d']:.4f} dan_acc "
                   f"{late[-1]['dan_acc']:.3f}")
     extra += f"; compute dtypes {engine.model_dtypes}"
+    term = (f"{cons_key} {late[-1][cons_key]:.3e}" if cons_key
+            else "no unsupervised term")
     print(f"method {method}: parameters {counts}; "
           f"{2 * METHOD_STEPS} steps, launches {launches} "
           f"({per_step} + {per_step} a step"
           f"{', under sync debug mode error' if strict else ''}); loss "
           f"{vals[0]['loss']:.4f} -> {vals[METHOD_STEPS - 1]['loss']:.4f}"
           f" (from 0), {late[0]['loss']:.4f} -> {late[-1]['loss']:.4f} "
-          f"(from 1000), {cons_key} {late[-1][cons_key]:.3e}{extra}; "
+          f"(from 1000), "
+          f"{term}{extra}; "
           f"{r['slices_per_s']:.2f} slices/s ({r['ms_per_step']:.2f} "
           f"ms/step over {MEASURE_STEPS} steps of {batch}), peak memory "
           f"{r['peak_gib']:.3f} GiB, on {card}")
@@ -980,6 +1037,75 @@ def run_vit_methods(card, strict):
             check_vit_eval(engine, state, store)
         del engine, state
         torch.cuda.empty_cache()
+    return results
+
+
+def run_config3(card, strict):
+    """Phase 5b, north-star config 3: SwinUnet-tiny (27,168,228
+    parameters at 2 classes) fully supervised and with uamt (T = 8), batch
+    16 = 8 + 8 at 224^2, dtype auto (bf16), from a 2-class store of the
+    synthetic slices; each through :func:`drive_method` (kernel #1 once
+    each way a step, uamt's teacher moved, its masked consistency live
+    after step 1000 with the SwinUnet's output projection scaled as phase
+    5 scales the UNet's output conv); uamt's Monte-Carlo teacher counted
+    with a spy: the consistency-target pass over u samples and ONE pass
+    over the T * u tiled batch a step, never a scan (the teacher holds no
+    batch statistics)."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
+    from cvssl_tpu_torch.train.engine import Engine
+    from cvssl_tpu_torch.train.state import StepCtx
+
+    t_phase = time.perf_counter()
+    store = DeviceSliceStore(SyntheticACDC(classes=CONFIG3_CLASSES),
+                             (VIT_PATCH, VIT_PATCH))
+    store.batch_fn(store.arrays(),
+                   torch.arange(VIT_BATCH, device=store.images.device),
+                   torch.Generator(device=store.images.device).manual_seed(0))
+    print(f"config 3 store ({CONFIG3_CLASSES} classes): "
+          f"{tuple(store.images.shape)} built in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    stream = two_stream(3, VIT_BATCH, VIT_LABELED_BS).epochs()
+    results = {}
+    for method, per_step in CONFIG3_LAUNCHES.items():
+        cfg = vit_config(method, model="swin_unet",
+                         num_classes=CONFIG3_CLASSES)
+        engine = Engine(cfg)
+        engine.attach_store(store)
+        state = engine.init_state()
+        passes = []
+        restore = []
+        if method == "uamt":
+            for m in (state.models["model"], state.teachers["model"]):
+                with torch.no_grad():
+                    m.output.weight.mul_(UAMT_LOGIT_SCALE)
+            for name in ("forward_teacher", "forward_teacher_scan"):
+                inner = getattr(StepCtx, name)
+
+                def spy(self, slot, x, *a, inner=inner, name=name, **k):
+                    passes.append((name, x.shape[0]))
+                    return inner(self, slot, x, *a, **k)
+                restore.append((name, inner))
+                setattr(StepCtx, name, spy)
+        try:
+            results[f"{method}_swin"] = drive_method(
+                engine, state, stream, per_step, strict, card, VIT_BATCH)
+        finally:
+            for name, inner in restore:
+                setattr(StepCtx, name, inner)
+        if method == "uamt":
+            u = VIT_BATCH - VIT_LABELED_BS
+            want = [("forward_teacher", u),
+                    ("forward_teacher", cfg.uncertainty_T * u)]
+            if not passes or passes != want * (len(passes) // 2):
+                raise SystemExit(f"uamt on SwinUnet: teacher passes "
+                                 f"{sorted(set(passes))}, not {want} a "
+                                 "step")
+            print(f"uamt on SwinUnet: {len(passes) // 2} steps, each with "
+                  f"the teacher passes {want} (one T * u pass, no scan)")
+        del engine, state
+        torch.cuda.empty_cache()
+    print(f"phase 5b config 3: {time.perf_counter() - t_phase:.1f} s")
     return results
 
 
@@ -1244,7 +1370,9 @@ def run_fit(device, card, strict):
     """Phase 7: fit, its files, the val table, resume, throughput; then
     the cps, fixmatch and cross_teaching fits, the host data path
     (:func:`run_host_fit`, its steps under sync debug mode "error" if
-    ``strict``) and the contrastive_cross fit."""
+    ``strict``), the contrastive_cross fit and the contrastive_consistency
+    fit on the host CTA path (:func:`run_ccons_fit`), whose kernel #1
+    launches it returns."""
     import torch
     from cvssl_tpu_torch.ops import edt
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
@@ -1333,6 +1461,7 @@ def run_fit(device, card, strict):
     run_vit_fit(card, train_ds, vit_val_ds)
     run_host_fit(card, train_ds, val_ds, store_sps, strict)
     run_cc_fit(card, train_ds, vit_val_ds)
+    return run_ccons_fit(card, train_ds, vit_val_ds, strict)
 
 
 def run_cps_fit(card, train_ds, val_ds):
@@ -1483,17 +1612,24 @@ def run_vit_fit(card, train_ds, val_ds):
 
 class HostSlices:
     """The host path's train set: each slice through a host transform
-    (``data/transforms.py``), with its index, as ``SliceDataset`` gives
-    it."""
+    (``data/transforms.py``, or CTAugment's ``CTATransform`` with its
+    policies), with its index, through ``SliceDataset``'s own
+    ``transform_sample``, as ``SliceDataset`` gives it."""
 
-    def __init__(self, base, transform):
+    def __init__(self, base, transform, ops_weak=None, ops_strong=None):
         self.base, self.transform = base, transform
+        self.ops_weak, self.ops_strong = ops_weak, ops_strong
 
     def __len__(self):
         return len(self.base)
 
     def __getitem__(self, i):
-        return {**self.transform(self.base[i]), "idx": i}
+        return self.load(i, self.ops_weak, self.ops_strong)
+
+    def load(self, i, ops_weak=None, ops_strong=None):
+        from cvssl_tpu_torch.data.datasets import transform_sample
+        return {**transform_sample(self.transform, self.base[i], ops_weak,
+                                   ops_strong), "idx": i}
 
 
 def host_data(base, cfg):
@@ -1589,10 +1725,12 @@ def run_host_fit(card, train_ds, val_ds, store_sps, strict):
             raise SystemExit(f"host fit: no {name} in {files}")
     meta = ckpt.load_weights(os.path.join(snap, f"model_iter_{k}.ckpt"))[
         "meta"]
-    if set(meta.get("data", {})) != {"rng", "primary", "p_pos", "secondary",
-                                     "s_pos"}:
+    data = meta.get("data") or {}
+    if (set(data) != {"sampler", "loader", "requests"}
+            or set(data["sampler"]) != {"rng", "primary", "p_pos",
+                                        "secondary", "s_pos"}):
         raise SystemExit(f"host fit: no sampler state in the checkpoint "
-                         f"({sorted(meta)})")
+                         f"({sorted(meta)}, data {sorted(data)})")
     print(f"host fit to {k} (device_data=False): "
           f"{res['slices_per_sec']:.2f} slices/s including validation and "
           f"checkpoints, beside the store path's {store_sps[0]:.2f} (fit to "
@@ -1658,6 +1796,200 @@ def run_cc_fit(card, train_ds, val_ds):
           f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
           f"{launches}, best dice {res['best_dice']}, on {card}")
     print(f"contrastive_cross fit files: {files}")
+
+
+def cta_data(base, cfg, method):
+    """(dataset, sampler) of the CTA host path, from ``build_cta_data``'s
+    own ``cta_train_data`` on the in-memory slices."""
+    from cvssl_tpu_torch.train.engine import cta_train_data
+    return cta_train_data(cfg, method,
+                          lambda *args: HostSlices(base, *args))
+
+
+def run_ccons_fit(card, train_ds, val_ds, strict):
+    """Phase 7g, contrastive_consistency on the host CTA path at the
+    reference's recipe (two SwinUnet-tiny and four projector heads, batch
+    16 = 8 + 8 at 224^2, on cell 2's train slices and the val volumes at
+    224^2): the host's time to transform and collate a CTA batch (one
+    thread, as the loader runs it); a few steps from the pipeline's pinned
+    batches through ``fit``'s own iteration, ``cta_iteration`` (under sync
+    debug mode "error" if ``strict``), then ms/step over more and a
+    one-step profile; then a 68-iteration ``fit`` (4 epochs of 17) with
+    one validation of both slots and one checkpoint: the host path (no
+    store, though ``device_data`` is True),
+    kernel #1 twice each way an iteration, the policy refreshes (each
+    epoch, and after unfavorable crops), the rates moved, projector1/2
+    tracking projector3/4 (which did not move), peak memory, slices/s.
+    Returns kernel #1's launches in the fit."""
+    import torch
+    from cvssl_tpu_torch.data.pipeline import DataPipeline, collate
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, cta_iteration, fit
+    from cvssl_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ccons_")
+    cfg = vit_config("contrastive_consistency", model="swin_unet",
+                     val_every=CCONS_FIT_STEPS, ckpt_every=CCONS_FIT_STEPS,
+                     log_every=50, snapshot_root=tmp, exp="ACDC/smoke_ccons",
+                     patch_size2=(VIT_PATCH, VIT_PATCH))
+    engine = Engine(cfg)
+    method = engine.method
+    ds, sampler = cta_data(train_ds, cfg, method)
+    indices = sampler.epochs()
+    load_s = []
+    for _ in range(CTA_TIMED_BATCHES):
+        t0 = time.perf_counter()
+        collate([ds.load(i, ds.ops_weak, ds.ops_strong)
+                 for i in next(indices)])
+        load_s.append(time.perf_counter() - t0)
+    load_ms = float(np.median(load_s)) * 1e3
+    print(f"CTA host batch ({VIT_BATCH} slices of "
+          f"{train_ds[0]['image'].shape} to {VIT_PATCH}^2, weak and strong "
+          f"policies of depth 2, one thread, median of "
+          f"{CTA_TIMED_BATCHES}): transform + collate {load_ms:.2f} ms; the "
+          f"step needs {VIT_BATCH * 1e3 / load_ms:.1f} slices/s of the host "
+          "at most")
+
+    t_steps = time.perf_counter()
+    state = engine.init_state()
+    ds, sampler = cta_data(train_ds, cfg, method)
+    pipe = DataPipeline(ds, sampler, pin_memory=True,
+                        policy=lambda: (ds.ops_weak, ds.ops_strong),
+                        loader_rng=ds.transform.rng)
+    stream = pipe.stream()
+    method.on_epoch_start(ds, 0)
+
+    def step():
+        nonlocal state
+        state, metrics = cta_iteration(engine, state, next(stream), pipe,
+                                       ds, len(sampler))
+        return state, metrics
+    try:
+        step()
+        for _ in range(CTA_CHECKED_STEPS):
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, metrics = step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CTA_TIMED_STEPS):
+            _, metrics = step()
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / CTA_TIMED_STEPS
+        busy = profile_steps(engine, state, None, step_s,
+                             steps=CTA_PROFILED_STEPS, top=8,
+                             step_fn=step)
+    finally:
+        stream.close()
+    vals = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise SystemExit(f"contrastive_consistency step: {vals}")
+    print(f"contrastive_consistency on the CTA pipeline: "
+          f"{CTA_CHECKED_STEPS} steps"
+          f"{' under sync debug mode error' if strict else ''}, then "
+          f"{step_s * 1e3:.2f} ms/step ({VIT_BATCH / step_s:.2f} slices/s) "
+          f"over {CTA_TIMED_STEPS} steps with the hooks, device busy "
+          f"{busy} ms/step, on {card}; metrics {vals} "
+          f"({time.perf_counter() - t_steps:.1f} s)")
+    del engine, state, pipe
+    torch.cuda.empty_cache()
+
+    t_fit = time.perf_counter()
+
+    engine = Engine(cfg)
+    method = engine.method
+    heads = ("projector1", "projector2", "projector3", "projector4")
+    start = {}
+    init_state = engine.init_state
+
+    def capture(seed=None):
+        st = init_state(seed)
+        start.update({n: [p.detach().clone()
+                          for p in st.models[n].parameters()]
+                      for n in heads})
+        return st
+    engine.init_state = capture
+    refreshes = {"epoch": 0, "crop": 0}
+    on_epoch_start, on_batch = method.on_epoch_start, method.on_batch
+
+    def count_epoch(dataset, it):
+        refreshes["epoch"] += 1
+        return on_epoch_start(dataset, it)
+
+    def count_crop(batch, dataset):
+        before = (dataset.ops_weak, dataset.ops_strong)
+        on_batch(batch, dataset)
+        refreshes["crop"] += (dataset.ops_weak, dataset.ops_strong) != before
+    method.on_epoch_start, method.on_batch = count_epoch, count_crop
+    fcd.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = fit(cfg, engine=engine, max_steps=CCONS_FIT_STEPS,
+              data=(*cta_data(train_ds, cfg, method), val_ds))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(fcd.LAUNCHES)
+    if res["iterations"] != CCONS_FIT_STEPS or engine.store is not None:
+        raise SystemExit(f"contrastive_consistency fit: {res['iterations']}"
+                         f" iterations, store {engine.store}")
+    if any(v != 2 * CCONS_FIT_STEPS for v in launches.values()):
+        raise SystemExit(f"contrastive_consistency fit: launches {launches}"
+                         f" in {CCONS_FIT_STEPS} iterations")
+    if (len(res["val_seconds"]) != 2
+            or set(res["best_dice"]) != {"model1", "model2"}):
+        raise SystemExit(f"contrastive_consistency fit: "
+                         f"{len(res['val_seconds'])} validations of "
+                         f"{sorted(res['best_dice'])}")
+    epochs = CCONS_FIT_STEPS // (ACDC_LABELED_SLICES // VIT_LABELED_BS)
+    if refreshes["epoch"] != 1 + epochs:
+        raise SystemExit(f"contrastive_consistency fit: {refreshes} policy "
+                         f"refreshes in {epochs} epochs")
+    moved = sum(int((r != 1).sum()) for rates in method.cta.rates.values()
+                for r in rates)
+    if not moved:
+        raise SystemExit("contrastive_consistency fit: no CTA rate moved")
+    models = res["state"].models
+    for dst, src in method.param_ema_map.items():
+        for a, b, a0 in zip(models[dst].parameters(),
+                            models[src].parameters(), start[dst]):
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-7):
+                raise SystemExit(f"{dst} does not track {src}")
+        if all(torch.equal(a0, b) for a0, b in
+               zip(start[dst], models[src].parameters())):
+            raise SystemExit(f"{dst} started as {src}: nothing to track")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(start[src], models[src].parameters())):
+            raise SystemExit(f"{src}'s weights moved (it is in no "
+                             "optimizer)")
+    snap = cfg.snapshot_path()
+    files = sorted(os.listdir(snap))
+    k = CCONS_FIT_STEPS
+    for name in (f"model1_iter_{k}.ckpt", f"model2_iter_{k}.ckpt",
+                 f"model_iter_{k}.ckpt"):
+        if name not in files:
+            raise SystemExit(f"contrastive_consistency fit: no {name} in "
+                             f"{files}")
+    meta = ckpt.load_weights(os.path.join(snap, f"model_iter_{k}.ckpt"))[
+        "meta"]
+    if not {"data", "cta"} <= set(meta) or not meta["data"]["requests"]:
+        raise SystemExit(f"contrastive_consistency fit: meta {sorted(meta)}")
+    print(f"contrastive_consistency fit to {k} (two SwinUnet-tiny + four "
+          f"heads, batch {VIT_BATCH} at {VIT_PATCH}^2, host CTA path): "
+          f"{res['slices_per_sec']:.2f} slices/s including validation and "
+          f"checkpoints ({VIT_BATCH * 1e3 / res['slices_per_sec']:.2f} "
+          f"ms/iteration), peak memory {peak / 2 ** 30:.3f} GiB, policy "
+          f"refreshes {refreshes}, {moved} CTA bins moved, val passes "
+          f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
+          f"{launches}, best dice {res['best_dice']}, on {card}")
+    print(f"contrastive_consistency fit files: {files} "
+          f"({time.perf_counter() - t_fit:.1f} s)")
+    print(f"phase 7g contrastive_consistency: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1739,12 +2071,14 @@ def main(argv=None) -> int:
     methods, strict = run_other_methods(device, smi, store)
     del store
     methods.update(run_vit_methods(smi, strict))
+    methods.update(run_config3(smi, strict))
 
     wait("conv3x3_p8")
     conv_err = check_conv(device)
     conv_timing = time_conv(device, mem_bw, tf32_rate)
     conv_launches = drive_conv(device)
-    run_fit(device, smi, strict)
+    methods["contrastive_consistency"] = {
+        "launches": run_fit(device, smi, strict)}
 
     source = "cvssl_tpu_torch/csrc/fused_ce_dice.cu"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",

@@ -38,15 +38,36 @@ def patients_to_slices(dataset: str, patients_num) -> int:
     return table[int(patients_num)]
 
 
+def transform_sample(transform: Optional[Callable], sample: dict,
+                     ops_weak=None, ops_strong=None) -> dict:
+    """The one place a train transform is applied to a sample: with the
+    CTAugment policies ``ops_weak`` and ``ops_strong`` (``CTATransform``),
+    or without (the other host transforms)."""
+    if transform is None:
+        return sample
+    if ops_weak is not None:
+        return transform(sample, ops_weak, ops_strong)
+    return transform(sample)
+
+
 class SliceDataset:
-    """2D per-slice dataset (ACDC / Prostate layout)."""
+    """2D per-slice dataset (ACDC / Prostate layout). With CTAugment
+    policies (``ops_weak`` and ``ops_strong``, both or neither) the
+    transform takes them: ``dataset[i]`` applies the dataset's current
+    ones, :meth:`load` the ones it is given (the CTA host pipeline's
+    loader, which never reads the dataset's)."""
 
     def __init__(self, base_dir: str, split: str = "train",
                  num: Optional[int] = None,
-                 transform: Optional[Callable] = None):
+                 transform: Optional[Callable] = None,
+                 ops_weak=None, ops_strong=None):
+        if bool(ops_weak) != bool(ops_strong):
+            raise ValueError("provide both weak and strong CTAugment policies")
         self.base_dir = base_dir
         self.split = split
         self.transform = transform
+        self.ops_weak = ops_weak
+        self.ops_strong = ops_strong
         list_file = "train_slices.list" if split == "train" else "val.list"
         with open(os.path.join(base_dir, list_file)) as f:
             self.sample_list = [ln.strip() for ln in f if ln.strip()]
@@ -61,6 +82,11 @@ class SliceDataset:
         return os.path.join(self.base_dir, sub, f"{case}.h5")
 
     def __getitem__(self, idx: int) -> dict:
+        return self.load(idx, self.ops_weak, self.ops_strong)
+
+    def load(self, idx: int, ops_weak=None, ops_strong=None) -> dict:
+        """Sample ``idx`` through the transform, with the given CTAugment
+        policies (None: a transform that takes none)."""
         import h5py
         case = self.sample_list[idx]
         with h5py.File(self.case_path(case), "r") as h5f:
@@ -68,7 +94,7 @@ class SliceDataset:
             label = h5f["label"][:]
         sample = {"image": image.astype(np.float32), "label": label,
                   "case": case}
-        if self.transform is not None:
-            sample = self.transform(sample)
+        sample = transform_sample(self.transform, sample, ops_weak,
+                                  ops_strong)
         sample["idx"] = idx
         return sample

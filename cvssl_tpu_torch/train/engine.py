@@ -9,7 +9,9 @@ One step: zero the gradients, run the method's loss through a ``StepCtx``
 autocast when its compute dtype is bfloat16), backward, SGD with the poly
 LR of the optimizer's own update count, then the EMA of the teacher's
 parameters with the decay of the step before its increment
-(``engine.py:236``). Adversarial methods run a second phase before any
+(``engine.py:236``), and the same EMA along the method's
+``param_ema_map`` (a model's parameters toward another's, JAX
+``engine.py:240-246``). Adversarial methods run a second phase before any
 optimizer steps (JAX ``engine.py:146-229``).
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; on a
@@ -28,7 +30,7 @@ import copy
 import dataclasses
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -137,6 +139,12 @@ class Engine:
         for name in self.method.teacher_names:
             ema_update(state.teachers[name].parameters(),
                        state.models[name].parameters(), decay)
+        # parameters only (BatchNorm's weight and bias among them): the
+        # running statistics move by each model's own forward, as Flax's
+        # ``params`` and ``batch_stats`` split them
+        for dst, src in self.method.param_ema_map.items():
+            ema_update(state.models[dst].parameters(),
+                       state.models[src].parameters(), decay)
         state.step += 1
         return state, {k: v.detach() if torch.is_tensor(v) else v
                        for k, v in metrics.items()}
@@ -288,12 +296,70 @@ def build_2d_data(cfg: TrainConfig, supervised_only: bool,
     return train_ds, sampler, val_ds
 
 
+def cta_train_data(cfg: TrainConfig, method: Method,
+                   make_dataset: Callable):
+    """The CTAugment path's train set + sampler (JAX ``engine.py:566-578``):
+    ``make_dataset(transform, ops_weak, ops_strong)`` with the method's
+    ``CTATransform`` and initial policies, and the two-stream sampler on
+    its own generator."""
+    rng = np.random.default_rng(cfg.seed)
+    train_ds = make_dataset(*method.create_transform(cfg))
+    labeled = list(range(cfg.labeled_slices))
+    unlabeled = list(range(cfg.labeled_slices, len(train_ds)))
+    sampler = TwoStreamBatchSampler(labeled, unlabeled, cfg.batch_size,
+                                    cfg.batch_size - cfg.labeled_bs, rng)
+    return train_ds, sampler
+
+
+def build_cta_data(cfg: TrainConfig, method: Method):
+    """:func:`cta_train_data` on the slices under ``cfg.root_path``, and
+    the val set."""
+    train_ds, sampler = cta_train_data(
+        cfg, method, lambda transform, ops_weak, ops_strong: SliceDataset(
+            cfg.root_path, "train", transform=transform, ops_weak=ops_weak,
+            ops_strong=ops_strong))
+    return train_ds, sampler, SliceDataset(cfg.root_path, "val")
+
+
+def cta_iteration(engine: Engine, state: TrainState, batch: dict,
+                  pipe: DataPipeline, train_ds,
+                  iters_per_epoch: int) -> tuple:
+    """One iteration of the CTAugment host path, the method's hooks in
+    JAX's order (``engine.py:640-677``): ``on_batch`` on the host batch,
+    the step, ``on_step_metrics``, and after an epoch's last step
+    ``on_epoch_end`` + ``on_epoch_start``; then the request for the batch
+    ``pipe.prefetch`` ahead, with the policies in force after all of them,
+    so a refresh after batch k reaches batch k + ``pipe.prefetch``.
+    Returns (state, metrics)."""
+    method = engine.method
+    method.on_batch(batch, train_ds)
+    state, metrics = engine.train_step(state, engine.host_batch(batch))
+    method.on_step_metrics(metrics)
+    if state.step % iters_per_epoch == 0:
+        method.on_epoch_end(train_ds)
+        method.on_epoch_start(train_ds, state.step)
+    pipe.request()
+    return state, metrics
+
+
+# the hooks a method on the ``cta`` transform gives ``fit``
+CTA_HOOKS = ("create_transform", "on_epoch_start", "on_batch",
+             "on_step_metrics", "on_epoch_end", "hook_state",
+             "load_hook_state")
+
+
 def _check_ported(cfg: TrainConfig, method: Method):
     """``fit`` raises for what this port does not run yet, rather than
     running something else."""
     if cfg.dim != 2:
         raise NotImplementedError("dim=3: the 3D path is not ported yet")
-    if method.transform not in STORE_MODES:
+    if method.transform == "cta":
+        missing = [h for h in CTA_HOOKS if not hasattr(method, h)]
+        if missing:
+            raise NotImplementedError(
+                f"method {cfg.method!r} trains on CTAugment ('cta') "
+                f"without the hooks {missing}")
+    elif method.transform not in STORE_MODES:
         raise NotImplementedError(
             f"method {cfg.method!r} needs the {method.transform!r} "
             "augmentation, which is not ported yet")
@@ -314,19 +380,29 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     checkpoints, resume from the newest full-state checkpoint.
 
     ``data`` is the (train_ds, sampler, val_ds) triple of
-    :func:`build_2d_data` (for the host path, with the transform on
-    ``train_ds``); None builds it from ``cfg.root_path``. The engine
-    defaults to ``Engine(cfg, device=device)``.
+    :func:`build_2d_data` or :func:`build_cta_data` (for the host path,
+    with the transform on ``train_ds``); None builds it from
+    ``cfg.root_path``. The engine defaults to ``Engine(cfg,
+    device=device)``.
 
     The batches come from the device store, or with ``device_data=False``
     from the host pipeline (``DataPipeline.stream()``, one step a batch,
     pinned and copied to the card without blocking), as JAX's rule picks.
+    A method on CTAugment (``transform == "cta"``) always takes the host
+    path, the pipeline with the method's policies
+    (``DataPipeline(policy=...)``), and ``fit`` drives its hooks in JAX's
+    order: ``on_epoch_start`` before the loop, then
+    :func:`cta_iteration` for each batch.
 
     One difference from the JAX loop: a resumed run sees the batches the
     uninterrupted run would have and ends bit-equal to it. The store path
     skips the first ``step`` batches of the index stream; the host path
     continues the stream from the sampler state saved with the checkpoint
-    (the state after the batches taken, not the prefetch thread's)."""
+    (the state after the batches taken, not the prefetch thread's); on
+    the CTA path also the loader's generator, the policies of the requests
+    in flight and the method's hook state (``hook_state``: the CTAugment
+    rates, generators and policies, the epoch's losses so far), and the
+    resumed run does not start an epoch anew."""
     engine = engine or Engine(cfg, device=device)
     _check_ported(cfg, engine.method)
     snapshot = cfg.snapshot_path()
@@ -340,12 +416,15 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
         logger.info("--deterministic 0: entropy seed %d", entropy_seed)
     logger.info("config: %s", cfg)
 
-    # JAX's rule (``engine.py:555-557``) also sends the ``cta`` transform
-    # to the host; ``_check_ported`` has raised for it
-    use_store = cfg.device_data
-    train_ds, sampler, val_ds = data or build_2d_data(
-        cfg, engine.method.supervised_only, engine.method.transform,
-        raw=use_store)
+    method = engine.method
+    # JAX's rule (``engine.py:555-557``): the ``cta`` transform always
+    # takes the host path
+    cta = method.transform == "cta"
+    use_store = cfg.device_data and not cta
+    if data is None:
+        data = build_cta_data(cfg, method) if cta else build_2d_data(
+            cfg, method.supervised_only, method.transform, raw=use_store)
+    train_ds, sampler, val_ds = data
     if use_store:
         engine.attach_store(DeviceSliceStore(train_ds, cfg.patch_size,
                                              device=engine.device,
@@ -353,6 +432,14 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
         index_stream = sampler.epochs()
         logger.info("device-resident dataset: %d samples on %s",
                     len(train_ds), engine.device)
+    elif cta:
+        pipe = DataPipeline(
+            train_ds, sampler, num_workers=cfg.num_workers,
+            pin_memory=engine.device.type == "cuda",
+            policy=lambda: (train_ds.ops_weak, train_ds.ops_strong),
+            loader_rng=train_ds.transform.rng)
+        logger.info("host CTAugment pipeline: %d samples, one prefetch "
+                    "thread", len(train_ds))
     else:
         pipe = DataPipeline(train_ds, sampler, num_workers=cfg.num_workers,
                             pin_memory=engine.device.type == "cuda")
@@ -374,8 +461,13 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
                     best_dice)
     # the host stream continues from the sampler state saved with the
     # checkpoint: the state after the batches the saved steps took
+    if cta and tree is not None:
+        method.load_hook_state(meta["cta"], train_ds)
     stream = None if use_store else pipe.stream(
         meta.get("data") if tree is not None else None)
+    if cta and tree is None:
+        method.on_epoch_start(train_ds, state.step)
+    iters_per_epoch = max(len(sampler), 1)
 
     max_iterations = max_steps or cfg.max_iterations
     saver = ckpt.AsyncWriter()
@@ -387,8 +479,14 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
         while it < max_iterations:
             if stream is not None:
                 n = 1
-                state, metrics = engine.train_step(
-                    state, engine.host_batch(next(stream)))
+                batch = next(stream)
+                if cta:
+                    state, metrics = cta_iteration(engine, state, batch,
+                                                   pipe, train_ds,
+                                                   iters_per_epoch)
+                else:
+                    state, metrics = engine.train_step(
+                        state, engine.host_batch(batch))
             else:
                 # K steps per call, never across a log, val or ckpt
                 # boundary
@@ -451,6 +549,8 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
                 meta = {"best_dice": dict(best_dice)}
                 if stream is not None:
                     meta["data"] = pipe.consumed_state
+                if cta:
+                    meta["cta"] = method.hook_state(train_ds)
 
                 def _save_state(s=snap, k=it, m=meta):
                     host = ckpt.to_host(s)

@@ -18,3 +18,4 @@ from cvssl_tpu_torch.train.methods import cnn_meet_vit  # noqa: F401
 from cvssl_tpu_torch.train.methods import tripleview  # noqa: F401
 from cvssl_tpu_torch.train.methods import adversarial_consistency  # noqa: F401
 from cvssl_tpu_torch.train.methods import contrastive  # noqa: F401
+from cvssl_tpu_torch.train.methods import contrastive_consistency  # noqa: F401

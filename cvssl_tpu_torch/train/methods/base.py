@@ -17,9 +17,6 @@ from cvssl_tpu_torch.models import net_factory
 from cvssl_tpu_torch.ops import losses, schedules
 
 _REGISTRY: Dict[str, type] = {}
-# methods of the JAX package that the port does not run yet
-_NOT_PORTED = {"contrastive_consistency": "it trains on CTAugment "
-               "(transform 'cta'), which is not ported yet"}
 
 
 def register_method(name: str):
@@ -38,8 +35,6 @@ def available_methods():
 def get_method(name: str, cfg):
     if name not in _REGISTRY:
         from cvssl_tpu_torch.train import methods  # noqa: F401 (registers)
-        if name in _NOT_PORTED:
-            raise NotImplementedError(f"method {name!r}: {_NOT_PORTED[name]}")
         if name not in _REGISTRY:
             raise ValueError(
                 f"unknown method {name!r}; available: {sorted(_REGISTRY)}")
@@ -54,7 +49,13 @@ class Method:
     teacher_names: Tuple[str, ...] = ()      # models that get an EMA teacher
     # models frozen in ``loss`` and trained by ``loss_d`` (discriminators)
     adversarial_models: Tuple[str, ...] = ()
-    transform: str = "default"               # augmentation of the store
+    # destination -> source: after the optimizer step, the destination's
+    # parameters become the EMA of the source's (JAX ``engine.py:240-246``)
+    param_ema_map: Dict[str, str] = {}
+    # augmentation: a store mode, or "cta" (CTAugment on the host, with
+    # the method's hooks ``create_transform``, ``on_epoch_start``,
+    # ``on_batch``, ``on_step_metrics``, ``on_epoch_end``)
+    transform: str = "default"
     supervised_only: bool = False            # labeled-only dataset, no 2-stream
 
     def __init__(self, cfg):

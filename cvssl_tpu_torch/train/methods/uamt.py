@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from cvssl_tpu_torch.ops import losses, ramps
 from cvssl_tpu_torch.train.methods.base import (Method, register_method,
@@ -19,12 +20,17 @@ class UncertaintyAwareMeanTeacher(Method):
     (0.75 + 0.25 * sigmoid_rampup(step, max_iterations)) * ln 2
     (``:187-189``).
 
-    The UNet's teacher normalises with BatchNorm, so for even T the MC
-    passes run as the reference's T // 2 sequential passes over the
+    The MC passes branch as JAX's do, on whether the teacher holds batch
+    statistics (:func:`has_batch_stats`). A BatchNorm teacher (the UNet)
+    with even T runs the reference's T // 2 sequential passes over the
     twice-repeated unlabeled batch (``StepCtx.forward_teacher_scan``), after
     the consistency-target pass; the order fixes the teacher's running
-    statistics. For odd T, one pass over the T-tiled batch, as JAX's
-    ``else`` branch."""
+    statistics. A stats-free teacher (SwinUnet's LayerNorm), or odd T, runs
+    one pass over the T-tiled batch: no sample is coupled to another, so
+    this is the reference's passes in one batch, and SwinUnet's stochastic
+    depth draws one mask over the T * u samples, as JAX's. JAX's third
+    branch, the 3D teacher's fused (T + 1) * u batch, waits for the 3D
+    models."""
 
     teacher_names = ("model",)
 
@@ -44,9 +50,11 @@ class UncertaintyAwareMeanTeacher(Method):
 
         tiled = unlabeled_img.repeat((T,) + (1,) * (unlabeled_img.ndim - 1))
         mc_noise = torch.clamp(0.1 * ctx.normal(tiled.shape, dev), -0.2, 0.2)
+        # JAX's fused (T + 1) * u branch for stats-free 3D teachers
+        # (``uamt.py:46-53``) comes with the 3D models
         ema_logits = self.primary_logits(
             ctx.forward_teacher("model", ema_inputs))
-        if T % 2 == 0:
+        if has_batch_stats(ctx.teachers["model"]) and T % 2 == 0:
             groups = (tiled + mc_noise).reshape((T // 2, 2 * u)
                                                 + tiled.shape[1:])
             mc = self.primary_logits(
@@ -78,3 +86,11 @@ class UncertaintyAwareMeanTeacher(Method):
         ramp = np.float32(ramps.sigmoid_rampup(step, self.cfg.max_iterations))
         return float((np.float32(0.75) + np.float32(0.25) * ramp)
                      * np.float32(np.log(2.0)))
+
+
+def has_batch_stats(model: nn.Module) -> bool:
+    """Whether ``model`` normalises with batch statistics, i.e. holds a
+    BatchNorm with running buffers: the port's counterpart of JAX's
+    ``bool(ctx.teacher_stats.get("model"))``."""
+    return any(isinstance(m, nn.modules.batchnorm._BatchNorm)
+               and m.track_running_stats for m in model.modules())

@@ -444,17 +444,17 @@ def test_fit_raises_for_what_is_not_ported(trees, tmp_path, change):
           }.get(change, {})
     cfg = _fit_cfg(troot, tmp_path, **kw)
     if change == "host_data":
-        # the host pipeline is ported; the method that needs it with
-        # CTAugment is not
-        cfg = _fit_cfg(troot, tmp_path, method="contrastive_consistency",
-                       **kw)
-        with pytest.raises(NotImplementedError):
+        # the host pipeline and the CTA path are ported; the 3D host path
+        # is not
+        cfg = _fit_cfg(troot, tmp_path, dim=3, **kw)
+        with pytest.raises(NotImplementedError, match="dim=3"):
             fit(cfg, max_steps=1, device="cpu")
         assert not os.path.exists(cfg.snapshot_path())
         return
     method = _NarrowMT(cfg)
     if change == "transform":
-        method.transform = "cta"      # the host CTAugment path
+        # the host CTAugment path, on a method without its hooks
+        method.transform = "cta"
     engine = TEngine(cfg, method=method, device="cpu")
     with pytest.raises(NotImplementedError):
         fit(cfg, engine=engine, max_steps=1)

@@ -4,8 +4,8 @@ generator left in the same state), ``collate`` (NCHW), the samplers' saved
 place in the stream, the first ``DataPipeline.stream()`` batches of
 ``build_2d_data``'s datasets for each transform, a ``fit`` with
 ``device_data=False`` that writes its files and resumes bit-equal, and
-``fit`` refusing ``contrastive_consistency``, whose CTAugment is not
-ported."""
+``fit`` of ``contrastive_consistency`` on the host CTA path whatever
+``device_data`` says."""
 import os
 
 import numpy as np
@@ -303,9 +303,12 @@ def test_fit_host_path_writes_and_resumes_bit_equal(trees, tmp_path,
     # the 8 labeled slices: the epoch's end), not the prefetch thread's
     full = ckpt.load_weights(os.path.join(cfg.snapshot_path(),
                                           "model_iter_4.ckpt"))
-    assert set(full["meta"]["data"]) == {"rng", "primary", "p_pos",
-                                         "secondary", "s_pos"}
-    assert full["meta"]["data"]["p_pos"] == 8
+    data = full["meta"]["data"]
+    assert set(data) == {"sampler", "loader", "requests"}
+    assert set(data["sampler"]) == {"rng", "primary", "p_pos",
+                                    "secondary", "s_pos"}
+    assert data["sampler"]["p_pos"] == 8
+    assert data["loader"] is None and data["requests"] == [[]] * 4
     ta, tb = (ckpt.state_tree(r["state"]) for r in (straight, resumed))
     assert ta["step"] == tb["step"] == 4
     for group in ("models", "teachers"):
@@ -344,15 +347,28 @@ def test_fit_host_path_batches_are_jax_pipeline_batches(trees, tmp_path):
 
 
 def test_fit_refuses_contrastive_consistency(trees, tmp_path):
-    """CTAugment is not ported: ``get_method`` and ``fit`` raise
-    NotImplementedError for the one method that trains on it, host path or
-    not, and nothing is written."""
+    """CTAugment is ported: ``get_method`` builds contrastive_consistency
+    and ``fit`` runs one step of it on the host CTA path for both
+    ``device_data`` values (``True`` too takes the host path, by JAX's
+    rule, ``engine.py:555-557``: no store), writing its files."""
     _, troot = trees
     for device_data in (False, True):
-        cfg = _fit_cfg(troot, tmp_path, method="contrastive_consistency",
-                       device_data=device_data)
-        with pytest.raises(NotImplementedError, match="CTAugment"):
-            fit(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="CTAugment"):
-            get_method("contrastive_consistency", cfg)
-        assert not os.path.exists(cfg.snapshot_path())
+        cfg = _fit_cfg(troot, tmp_path / str(device_data),
+                       method="contrastive_consistency", model2="unet",
+                       device_data=device_data, val_every=1, ckpt_every=1)
+
+        class Narrow(type(get_method(cfg.method, cfg))):
+            def _factory(self, net_type):
+                if net_type == "unet":
+                    return net_factory(net_type, 1, C, features=FEATURES)
+                return super()._factory(net_type)
+        engine = TEngine(cfg, method=Narrow(cfg), device="cpu")
+        result = fit(cfg, engine=engine, max_steps=1)
+        assert result["iterations"] == 1
+        assert engine.store is None
+        assert set(result["best_dice"]) == {"model1", "model2"}
+        with open(os.path.join(cfg.snapshot_path(), "log.txt")) as f:
+            assert "host CTAugment pipeline" in f.read()
+        full = ckpt.load_weights(os.path.join(cfg.snapshot_path(),
+                                              "model_iter_1.ckpt"))
+        assert {"data", "cta"} <= set(full["meta"])
