@@ -126,11 +126,38 @@ the run with a non-zero exit:
    way an iteration, the policy refreshes, the CTA rates moved,
    projector1/2 tracking projector3/4, whose weights stay, peak memory
    and slices/s;
-8. one JSON line of the kernels (kernel #1's with its launches in each
-   method's run of phases 5 and 5b and in the contrastive_consistency
-   ``fit``; phase 5b's contrastive_cross as ``contrastive_cross_vit``,
-   config 3's methods as ``supervised_swin`` and ``uamt_swin``), then the
-   result line
+8. the 3D path, north-star config 5 (UAMT-3D on unet_3D, batch 4 = 2 + 2
+   at 96^3, 2 classes, dtype auto): kernel #1 at (2, 2, 96, 96, 96) and a
+   ragged (2, 2, 17, 19, 23), f32 and bf16 logits, int32 and uint8
+   labels, against float64 and bit-equal on repeat, and its time at
+   config 5's shape beside its plain version and bound; a device store
+   (``DeviceVolumeStore``) of 250 volumes of 140 x 180 x 180 (BraTS2019's
+   train count) drawn on the card; UAMT-3D (5,884,050 parameters), 10
+   steps from step 0 and 10 from step 1000 under the sync debug mode
+   "error" where phase 5 ran so, kernel #1 once each way a step, exactly
+   one teacher pass over the (T + 1) * u = 18 volumes a step (counted),
+   the teacher moved, the masked consistency live (output conv x8), then
+   volumes/s over 30 steps, peak memory and a one-step profile; the same
+   for supervised, mean_teacher, cps, ict, adversarial and
+   exam_student_teacher (FC3DDiscriminator, 11,024,386 parameters; kernel
+   #1 launched 1, 1, 2, 1, 1, 1 times a step, none in the discriminator
+   phase), 5 + 5 checked steps and 10 timed each; UNet3DDeepSup's f32
+   eval heads on the card against the CPU; the sliding window on 5
+   volumes of 140 x 180 x 180 (18 windows each, pipelined; volumes/s), and
+   a net that thresholds each voxel through it, exactly; a UAMT-3D
+   ``fit`` of 100 iterations (one validation of 4 volumes of mixed shapes,
+   one under the patch; one checkpoint), then a resume to 150: files, the
+   val table, kernel #1's launches, volumes/s, the val pass and the
+   host's HD95 share of it; and the 3D host path (``device_data=False``:
+   the host's time per batch, 3 steps from pinned batches). Each part's
+   seconds are printed. ``--3d-only`` builds the CE+Dice source alone and
+   runs only this phase (its steps under "error");
+9. one JSON line of the kernels (kernel #1's with its launches in each
+   method's run of phases 5, 5b and 8 and in the contrastive_consistency
+   and UAMT-3D ``fit``s; phase 5b's contrastive_cross as
+   ``contrastive_cross_vit``, config 3's methods as ``supervised_swin``
+   and ``uamt_swin``, phase 8's with ``_3d``; and under ``at_5d`` its
+   error and times at config 5's shape), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -243,6 +270,31 @@ CTA_CHECKED_STEPS, CTA_TIMED_STEPS = 3, 5
 # these steps (two SwinUnet-tiny and four heads; NVIDIA H100 80GB HBM3,
 # 700 W), and their device time varies by under 1.5% from step to step
 CTA_PROFILED_STEPS = 1
+
+# north-star config 5 (BASELINE.md:19, bench.py:291-336): UAMT-3D on
+# unet_3D, batch 4 = 2 labeled + 2 unlabeled at 96^3, 2 classes, T = 8;
+# the train set BraTS2019's 250 volumes at bench.py:259's 140 x 180 x 180
+# (25 labeled, the reference's 10%), drawn on the card
+BATCH_3D, LABELED_BS_3D, PATCH_3D, CLASSES_3D = 4, 2, 96, 2
+SHAPE_3D = (LABELED_BS_3D, CLASSES_3D, PATCH_3D, PATCH_3D, PATCH_3D)
+RAGGED_3D = (2, CLASSES_3D, 17, 19, 23)
+BRATS_TRAIN, BRATS_LABELED, BRATS_VOLUME = 250, 25, (140, 180, 180)
+# kernel #1's launches a step (forward, and backward) of the 3D methods
+METHOD_LAUNCHES_3D = {"supervised": 1, "mean_teacher": 1, "cps": 2,
+                      "ict": 1, "adversarial": 1,
+                      "exam_student_teacher": 1}
+MODEL_PARAMS_3D = {"unet_3D": 5_884_050, "discriminator": 11_024_386}
+UAMT_3D_CHECKED, UAMT_3D_TIMED = 10, 30
+METHOD_3D_CHECKED, METHOD_3D_TIMED = 5, 10
+# the sliding window: 5 volumes of bench.py:237-288's shape, 18 windows
+# each at stride 64; the fit: 100 iterations (one validation, one
+# checkpoint), a resume to 150, on 4 val volumes of mixed shapes (one
+# under the patch on its first axis, so that the padding runs)
+SW_VOLUMES, SW_WINDOWS = 5, 18
+FIT_3D_STEPS, FIT_3D_RESUME = 100, 150
+VAL_3D_SHAPES = ((140, 180, 180), (120, 160, 150), (90, 130, 140),
+                 (100, 100, 100))
+HOST_3D_VOLUMES, HOST_3D_TIMED, HOST_3D_STEPS = 8, 10, 3
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -404,59 +456,71 @@ def check_kernels(device):
     cases += [(shape, getattr(torch, dt), getattr(torch, lt), False)
               for shape, dt, lt in OTHER_CLASSES]
     for shape, dtype, label_dtype, offset in cases:
-        c = shape[1]
-        logits = (2.0 * torch.randn(shape, generator=gen,
-                                    device=device)).to(dtype)
-        labels = torch.randint(0, c, shape[:1] + shape[2:],
-                               generator=gen, device=device
-                               ).to(label_dtype)
-        x = offset_view(logits) if offset else logits.clone()
-        x.requires_grad_(True)
-        tag = (f"{tuple(shape)} {str(dtype)[6:]} {str(label_dtype)[6:]}"
-               f"{' offset' if offset else ''}")
-        geo = fcd._geometry(x, labels)
-        if geo.vector != (shape[2:] != RAGGED_SHAPE[2:] and not offset):
-            raise SystemExit(f"{tag}: vector path {geo.vector}")
-        ce, dice = fcd.fused_ce_dice(x, labels, c)
-        (COTANGENTS[0] * ce + COTANGENTS[1] * dice).backward()
-        xd = logits.double().requires_grad_(True)
-        ce_r, dice_r = fcd.ce_dice_plain(xd, labels, c)
-        (COTANGENTS[0] * ce_r + COTANGENTS[1] * dice_r).backward()
-        torch.cuda.synchronize()
-        for got, want in ((ce, ce_r), (dice, dice_r)):
-            got, want = float(got.detach()), float(want.detach())
-            rel = abs(got - want) / abs(want)
-            err["ce_dice_fwd"] = max(err["ce_dice_fwd"],
-                                     abs(got - want))
-            if not rel <= FWD_REL_TOL:
-                raise SystemExit(f"forward mismatch {tag}: rel {rel}")
-        g, gr = x.grad.double(), xd.grad
-        if x.grad.dtype != dtype:
-            raise SystemExit(f"grad dtype {x.grad.dtype} != {dtype}")
-        rtol = GRAD_RTOL[str(dtype)[6:]]
-        atol = GRAD_ATOL_OF_MAX * float(gr.abs().max())
-        bad = (g - gr).abs() > atol + rtol * gr.abs()
-        err["ce_dice_bwd"] = max(err["ce_dice_bwd"],
-                                 float((g - gr).abs().max()))
-        if bool(bad.any()):
-            raise SystemExit(
-                f"backward mismatch {tag}: {int(bad.sum())} elements,"
-                f" max abs err {float((g - gr).abs().max())}")
-        # determinism: the same inputs give the same bits, call after call
-        xs = x.detach()
-        g_ce, g_dice = (torch.tensor(v, device=device) for v in COTANGENTS)
-        outs = [fcd._forward_cuda(xs, labels) for _ in range(2)]
-        stats = outs[0][2]
-        grads = [fcd._backward_cuda(xs, labels, stats, g_ce, g_dice)
-                 for _ in range(2)]
-        torch.cuda.synchronize()
-        if not (all(torch.equal(a, b) for a, b in zip(*outs))
-                and torch.equal(grads[0], grads[1])):
-            raise SystemExit(f"{tag}: two calls on the same inputs differ")
-        print(f"kernel check {tag}: ce {float(ce.detach()):.6f} "
-              f"dice {float(dice.detach()):.6f} ok (vector path "
-              f"{geo.vector}, tail {geo.tail}; bit-equal on repeat)")
+        check_case(device, gen, shape, dtype, label_dtype, offset,
+                   shape[2:] != RAGGED_SHAPE[2:] and not offset, err)
     return err
+
+
+def check_case(device, gen, shape, dtype, label_dtype, offset, vector,
+               err):
+    """One case of kernel #1 against the float64 plain version, forward
+    and backward, on the path ``vector`` says, and bit-equal across two
+    calls; the largest absolute errors go into ``err``."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+
+    c = shape[1]
+    logits = (2.0 * torch.randn(shape, generator=gen,
+                                device=device)).to(dtype)
+    labels = torch.randint(0, c, shape[:1] + shape[2:],
+                           generator=gen, device=device
+                           ).to(label_dtype)
+    x = offset_view(logits) if offset else logits.clone()
+    x.requires_grad_(True)
+    tag = (f"{tuple(shape)} {str(dtype)[6:]} {str(label_dtype)[6:]}"
+           f"{' offset' if offset else ''}")
+    geo = fcd._geometry(x, labels)
+    if geo.vector != vector:
+        raise SystemExit(f"{tag}: vector path {geo.vector}")
+    ce, dice = fcd.fused_ce_dice(x, labels, c)
+    (COTANGENTS[0] * ce + COTANGENTS[1] * dice).backward()
+    xd = logits.double().requires_grad_(True)
+    ce_r, dice_r = fcd.ce_dice_plain(xd, labels, c)
+    (COTANGENTS[0] * ce_r + COTANGENTS[1] * dice_r).backward()
+    torch.cuda.synchronize()
+    for got, want in ((ce, ce_r), (dice, dice_r)):
+        got, want = float(got.detach()), float(want.detach())
+        rel = abs(got - want) / abs(want)
+        err["ce_dice_fwd"] = max(err["ce_dice_fwd"],
+                                 abs(got - want))
+        if not rel <= FWD_REL_TOL:
+            raise SystemExit(f"forward mismatch {tag}: rel {rel}")
+    g, gr = x.grad.double(), xd.grad
+    if x.grad.dtype != dtype:
+        raise SystemExit(f"grad dtype {x.grad.dtype} != {dtype}")
+    rtol = GRAD_RTOL[str(dtype)[6:]]
+    atol = GRAD_ATOL_OF_MAX * float(gr.abs().max())
+    bad = (g - gr).abs() > atol + rtol * gr.abs()
+    err["ce_dice_bwd"] = max(err["ce_dice_bwd"],
+                             float((g - gr).abs().max()))
+    if bool(bad.any()):
+        raise SystemExit(
+            f"backward mismatch {tag}: {int(bad.sum())} elements,"
+            f" max abs err {float((g - gr).abs().max())}")
+    # determinism: the same inputs give the same bits, call after call
+    xs = x.detach()
+    g_ce, g_dice = (torch.tensor(v, device=device) for v in COTANGENTS)
+    outs = [fcd._forward_cuda(xs, labels) for _ in range(2)]
+    stats = outs[0][2]
+    grads = [fcd._backward_cuda(xs, labels, stats, g_ce, g_dice)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(*outs))
+            and torch.equal(grads[0], grads[1])):
+        raise SystemExit(f"{tag}: two calls on the same inputs differ")
+    print(f"kernel check {tag}: ce {float(ce.detach()):.6f} "
+          f"dice {float(dice.detach()):.6f} ok (vector path "
+          f"{geo.vector}, tail {geo.tail}; bit-equal on repeat)")
 
 
 def host_us(fn, calls=200):
@@ -518,18 +582,19 @@ def trace_launches(calls, flush, reps=20):
     return out
 
 
-def kernel_calls(device):
-    """Kernel #1 at the main-path shape in the main path's dtype (bf16
-    logits, int32 labels): its forward and backward launches, the empty
-    kernel, and a 1 GiB flush buffer, larger than L2 (50 MB), whose ~0.3 ms
-    write outlasts the host's enqueueing of any call timed here."""
+def kernel_calls(device, shape=MAIN_SHAPE):
+    """Kernel #1 at ``shape`` (default the main path's) in the main path's
+    dtype (bf16 logits, int32 labels): its forward and backward launches,
+    the empty kernel, and a 1 GiB flush buffer, larger than L2 (50 MB),
+    whose ~0.3 ms write outlasts the host's enqueueing of any call timed
+    here."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
     gen = torch.Generator(device=device).manual_seed(1)
-    logits = torch.randn(MAIN_SHAPE, generator=gen, device=device).to(
+    logits = torch.randn(shape, generator=gen, device=device).to(
         torch.bfloat16)
-    labels = torch.randint(0, CLASSES, MAIN_SHAPE[:1] + MAIN_SHAPE[2:],
+    labels = torch.randint(0, shape[1], shape[:1] + shape[2:],
                            generator=gen, device=device, dtype=torch.int32)
     flush = torch.empty(2 ** 28, dtype=torch.int32, device=device)
     _, _, stats = fcd._forward_cuda(logits, labels)
@@ -572,17 +637,17 @@ def trace_kernels(device):
     return trace
 
 
-def time_kernels(device, mem_bw, f32_rate):
-    """Phase 2 timings of kernel #1 (:func:`kernel_calls`): kernel, plain
-    version, bound; the event timer's floor (an empty kernel through
-    ctypes), and the host's enqueue time per call."""
+def time_kernels(device, mem_bw, f32_rate, shape=MAIN_SHAPE):
+    """Phase 2 timings of kernel #1 (:func:`kernel_calls`) at ``shape``:
+    kernel, plain version, bound; the event timer's floor (an empty kernel
+    through ctypes), and the host's enqueue time per call."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
-    k = kernel_calls(device)
+    k = kernel_calls(device, shape)
     logits, labels, flush = k["logits"], k["labels"], k["flush"]
     n = labels.numel()
-    c = CLASSES
+    c = shape[1]
 
     def plain_fwd():
         with torch.no_grad():
@@ -625,7 +690,8 @@ def time_kernels(device, mem_bw, f32_rate):
             "bytes": io[name], "host_us": host_us(kern),
             "l2": l2_states(kern, flush)}
         r = rows[name]
-        print(f"kernel {name}: kernel_ms {r['ms']:.6f} plain_ms "
+        print(f"kernel {name} at {tuple(shape)}: kernel_ms {r['ms']:.6f} "
+              f"plain_ms "
               f"{r['plain_ms']:.6f} bound_us {r['bound_ms'] * 1e3:.3f} "
               f"({r['bound_by']}, {r['bytes']} bytes) library_ms none; "
               f"above the floor {(r['ms'] - floor_ms) * 1e3:.3f} us; "
@@ -861,21 +927,25 @@ def run_other_methods(device, card, store):
     return results, strict
 
 
-def drive_method(engine, state, stream, per_step, strict, card, batch):
-    """One method at full width: its models' parameter counts; 5 steps
-    from step 0 and 5 from step 1000 (under sync debug mode "error" if
-    ``strict``), kernel #1 launched ``per_step`` times a step, forward and
-    backward; finite losses; a live unsupervised term after step 1000 (the
-    pseudo-supervision of cps and the CNN+ViT methods read through their
-    ``_pseudo_*`` terms and recomputed here, see :func:`check_pseudo`); the
-    teachers, or else every model, and the discriminators moved; then
-    slices/s and peak memory over 30 steps and a short profile of the
-    step. Returns the method's numbers."""
+def drive_method(engine, state, stream, per_step, strict, card, batch,
+                 checked=METHOD_STEPS, timed=MEASURE_STEPS, profiled=3,
+                 top=5):
+    """One method at full width: its models' parameter counts; ``checked``
+    steps from step 0 and as many from step 1000 (under sync debug mode
+    "error" if ``strict``), kernel #1 launched ``per_step`` times a step,
+    forward and backward; finite losses; a live unsupervised term after
+    step 1000 (the pseudo-supervision of cps and the CNN+ViT methods read
+    through their ``_pseudo_*`` terms and recomputed here, see
+    :func:`check_pseudo`); the teachers, or else every model, and the
+    discriminators moved; then samples/s and peak memory over ``timed``
+    steps and a profile of ``profiled`` steps (its ``top`` kernels).
+    Returns the method's numbers."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
     method = engine.cfg.method
-    expected = (MODEL_PARAMS if engine.cfg.num_classes == CLASSES
+    expected = (MODEL_PARAMS_3D if engine.cfg.dim == 3 else
+                MODEL_PARAMS if engine.cfg.num_classes == CLASSES
                 else MODEL_PARAMS_2)
     counts = {}
     for slot, model in state.models.items():
@@ -905,7 +975,7 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
     vals = []
     for start in (0, 1000):
         state.step = start
-        for _ in range(METHOD_STEPS):
+        for _ in range(checked):
             before = dict(fcd.LAUNCHES)
             if strict:
                 torch.cuda.set_sync_debug_mode("error")
@@ -924,15 +994,15 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
     vals = [{k: float(v) for k, v in m.items()} for m in vals]
     if not all(math.isfinite(x) for v in vals for x in v.values()):
         raise SystemExit(f"{method}: non-finite metrics {vals}")
-    late = vals[METHOD_STEPS:]
+    late = vals[checked:]
     cons_key = CONSISTENCY_KEY.get(method, "consistency_loss")
     if pseudo is not None:
         calls_per_step = len(PSEUDO_PAIRS[method])
-        if len(pseudo) != calls_per_step * 2 * METHOD_STEPS:
+        if len(pseudo) != calls_per_step * 2 * checked:
             raise SystemExit(f"{method}: {len(pseudo)} pseudo-supervision "
-                             f"terms in {2 * METHOD_STEPS} steps")
+                             f"terms in {2 * checked} steps")
         cons_key = "pseudo_supervision"
-        for i, v in enumerate(late, METHOD_STEPS):
+        for i, v in enumerate(late, checked):
             v[cons_key] = check_pseudo(
                 method, pseudo[calls_per_step * i:calls_per_step * (i + 1)],
                 v)
@@ -959,7 +1029,7 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(MEASURE_STEPS // 10):
+    for _ in range(timed // 10):
         state, metrics = engine.train_steps(
             state, [next(stream) for _ in range(10)])
     float(metrics["loss"])
@@ -967,8 +1037,8 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     r = {"params": counts, "launches": launches,
-         "slices_per_s": MEASURE_STEPS * batch / dt,
-         "ms_per_step": dt / MEASURE_STEPS * 1e3,
+         "slices_per_s": timed * batch / dt,
+         "ms_per_step": dt / timed * 1e3,
          "peak_gib": peak / 2 ** 30}
     extra = (f", uncertainty mask {late[-1]['uncertainty_mask_frac']:.4f}"
              if method == "uamt" else "")
@@ -978,19 +1048,21 @@ def drive_method(engine, state, stream, per_step, strict, card, batch):
     extra += f"; compute dtypes {engine.model_dtypes}"
     term = (f"{cons_key} {late[-1][cons_key]:.3e}" if cons_key
             else "no unsupervised term")
+    unit = "volumes" if engine.cfg.dim == 3 else "slices"
     print(f"method {method}: parameters {counts}; "
-          f"{2 * METHOD_STEPS} steps, launches {launches} "
+          f"{2 * checked} steps, launches {launches} "
           f"({per_step} + {per_step} a step"
           f"{', under sync debug mode error' if strict else ''}); loss "
-          f"{vals[0]['loss']:.4f} -> {vals[METHOD_STEPS - 1]['loss']:.4f}"
+          f"{vals[0]['loss']:.4f} -> {vals[checked - 1]['loss']:.4f}"
           f" (from 0), {late[0]['loss']:.4f} -> {late[-1]['loss']:.4f} "
           f"(from 1000), "
           f"{term}{extra}; "
-          f"{r['slices_per_s']:.2f} slices/s ({r['ms_per_step']:.2f} "
-          f"ms/step over {MEASURE_STEPS} steps of {batch}), peak memory "
+          f"{r['slices_per_s']:.2f} {unit}/s ({r['ms_per_step']:.2f} "
+          f"ms/step over {timed} steps of {batch}), peak memory "
           f"{r['peak_gib']:.3f} GiB, on {card}")
     r["busy_ms_per_step"] = profile_steps(engine, state, stream,
-                                          dt / MEASURE_STEPS, top=5)
+                                          dt / timed, steps=profiled,
+                                          top=top)
     return r
 
 
@@ -1054,7 +1126,6 @@ def run_config3(card, strict):
     import torch
     from cvssl_tpu_torch.data.device_store import DeviceSliceStore
     from cvssl_tpu_torch.train.engine import Engine
-    from cvssl_tpu_torch.train.state import StepCtx
 
     t_phase = time.perf_counter()
     store = DeviceSliceStore(SyntheticACDC(classes=CONFIG3_CLASSES),
@@ -1073,26 +1144,17 @@ def run_config3(card, strict):
         engine = Engine(cfg)
         engine.attach_store(store)
         state = engine.init_state()
-        passes = []
-        restore = []
+        passes, stop = [], lambda: None
         if method == "uamt":
             for m in (state.models["model"], state.teachers["model"]):
                 with torch.no_grad():
                     m.output.weight.mul_(UAMT_LOGIT_SCALE)
-            for name in ("forward_teacher", "forward_teacher_scan"):
-                inner = getattr(StepCtx, name)
-
-                def spy(self, slot, x, *a, inner=inner, name=name, **k):
-                    passes.append((name, x.shape[0]))
-                    return inner(self, slot, x, *a, **k)
-                restore.append((name, inner))
-                setattr(StepCtx, name, spy)
+            passes, stop = spy_teacher_passes()
         try:
             results[f"{method}_swin"] = drive_method(
                 engine, state, stream, per_step, strict, card, VIT_BATCH)
         finally:
-            for name, inner in restore:
-                setattr(StepCtx, name, inner)
+            stop()
         if method == "uamt":
             u = VIT_BATCH - VIT_LABELED_BS
             want = [("forward_teacher", u),
@@ -1992,6 +2054,433 @@ def run_ccons_fit(card, train_ds, val_ds, strict):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 8: the 3D path (north-star config 5)
+# ---------------------------------------------------------------------------
+
+def config_3d(method, **kw):
+    """North-star config 5's configuration of ``method``: unet_3D, batch
+    4 = 2 + 2 at 96^3, 2 classes, dtype auto; ``kw`` overrides."""
+    from cvssl_tpu_torch.train.config import TrainConfig
+    base = dict(method=method, model="unet_3D", dim=3,
+                num_classes=CLASSES_3D, batch_size=BATCH_3D,
+                labeled_bs=LABELED_BS_3D, patch_size=(PATCH_3D,) * 3,
+                labeled_num=BRATS_LABELED, total_num=BRATS_TRAIN)
+    return TrainConfig(**{**base, **kw})
+
+
+def two_stream_3d(seed, labeled=BRATS_LABELED, total=BRATS_TRAIN):
+    """Config 5's sampler: 2 of the labeled volumes + 2 of the rest a
+    batch."""
+    from cvssl_tpu_torch.data.sampler import TwoStreamBatchSampler
+    return TwoStreamBatchSampler(
+        list(range(labeled)), list(range(labeled, total)), BATCH_3D,
+        BATCH_3D - LABELED_BS_3D, rng=np.random.default_rng(seed))
+
+
+def brats_volumes(device, n=BRATS_TRAIN, seed=0):
+    """BraTS2019's train count of blob volumes at 140 x 180 x 180, drawn on
+    the card volume by volume (``data/synthetic.py::DeviceBlobVolumes``)."""
+    from cvssl_tpu_torch.data.synthetic import DeviceBlobVolumes
+    return DeviceBlobVolumes(n, BRATS_VOLUME, seed=seed,
+                             num_classes=CLASSES_3D, device=device)
+
+
+def spy_teacher_passes():
+    """Record (name, batch) of every teacher pass of ``StepCtx``; returns
+    the list and a function that ends the recording."""
+    from cvssl_tpu_torch.train.state import StepCtx
+    passes, restore = [], []
+    for name in ("forward_teacher", "forward_teacher_scan"):
+        inner = getattr(StepCtx, name)
+
+        def spy(self, slot, x, *a, inner=inner, name=name, **k):
+            passes.append((name, x.shape[0]))
+            return inner(self, slot, x, *a, **k)
+        restore.append((name, inner))
+        setattr(StepCtx, name, spy)
+
+    def stop():
+        for name, inner in restore:
+            setattr(StepCtx, name, inner)
+    return passes, stop
+
+
+def run_3d_methods(card, strict, store):
+    """Phase 8.2-8.3: UAMT-3D at config 5 (kernel #1 once each way a step;
+    the teacher moved; exactly one teacher pass over the (T + 1) * u = 18
+    volumes a step, counted; its masked consistency live after step 1000
+    with the output conv scaled as phase 5 scales the UNet's; volumes/s
+    over 30 steps, peak memory and a one-step profile), then supervised,
+    mean_teacher, cps, ict, adversarial and exam_student_teacher
+    (FC3DDiscriminator) from the same store, 5 + 5 checked steps and 10
+    timed each."""
+    import torch
+    from cvssl_tpu_torch.train.engine import Engine
+
+    results = {}
+    stream = two_stream_3d(8).epochs()
+    t0 = time.perf_counter()
+    cfg = config_3d("uamt")
+    engine = Engine(cfg)
+    engine.attach_store(store)
+    state = engine.init_state()
+    for m in (state.models["model"], state.teachers["model"]):
+        with torch.no_grad():
+            m.final.weight.mul_(UAMT_LOGIT_SCALE)
+            m.final.bias.mul_(UAMT_LOGIT_SCALE)
+    passes, stop = spy_teacher_passes()
+    try:
+        results["uamt_3d"] = drive_method(
+            engine, state, stream, 1, strict, card, BATCH_3D,
+            checked=UAMT_3D_CHECKED, timed=UAMT_3D_TIMED, profiled=1,
+            top=15)
+    finally:
+        stop()
+    u = BATCH_3D - LABELED_BS_3D
+    want = ("forward_teacher", (cfg.uncertainty_T + 1) * u)
+    if not passes or set(passes) != {want}:
+        raise SystemExit(f"uamt 3D: teacher passes {sorted(set(passes))}, "
+                         f"not one {want} a step")
+    steps = 2 * UAMT_3D_CHECKED + UAMT_3D_TIMED + 1
+    if len(passes) != steps:
+        raise SystemExit(f"uamt 3D: {len(passes)} teacher passes in "
+                         f"{steps} steps")
+    print(f"uamt 3D: {len(passes)} steps, each with one teacher pass over "
+          f"{want[1]} volumes ((T + 1) * u); phase part "
+          f"{time.perf_counter() - t0:.1f} s")
+    del engine, state
+    torch.cuda.empty_cache()
+    for method, per_step in METHOD_LAUNCHES_3D.items():
+        t0 = time.perf_counter()
+        engine = Engine(config_3d(method))
+        engine.attach_store(store)
+        state = engine.init_state()
+        results[f"{method}_3d"] = drive_method(
+            engine, state, stream, per_step, strict, card, BATCH_3D,
+            checked=METHOD_3D_CHECKED, timed=METHOD_3D_TIMED, profiled=1)
+        print(f"{method} 3D: phase part {time.perf_counter() - t0:.1f} s")
+        del engine, state
+        torch.cuda.empty_cache()
+    return results
+
+
+def check_deep_sup_eval(device):
+    """Phase 8.4: UNet3DDeepSup's four eval-mode heads in float32 on the
+    card against the same weights on the CPU, at 64^3."""
+    import copy
+
+    import torch
+    from cvssl_tpu_torch.models import net_factory_3d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        ref = net_factory_3d("unet_3D_dv_semi", 1, CLASSES_3D).eval()
+    net = copy.deepcopy(ref).to(device)
+    x = brats_volumes(device, 1, seed=77)[0]["image"][None, None,
+                                                      :64, :64, :64]
+    with torch.no_grad():
+        got = [o.cpu() for o in net(x.contiguous())]
+        want = ref(x.cpu())
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    print(f"UNet3DDeepSup eval: 4 heads of {tuple(got[0].shape)} "
+          f"{got[0].dtype}; f32 card vs CPU max rel err {max(errs):.2e}")
+    if any(g.dtype != torch.float32 for g in got) or max(errs) > 1e-4:
+        raise SystemExit("UNet3DDeepSup's f32 eval forward on the card "
+                         "disagrees with the CPU")
+
+
+def run_sliding_window(device, card):
+    """Phase 8.5: the sliding window (``eval/val3d.py``) on 5 volumes of
+    140 x 180 x 180, 18 windows each at stride 64, UNet3D's eval softmax,
+    pipelined as a validation runs it (volume i + 1 queued before volume i
+    is collected): volumes/s over two passes after a warm-up; the label
+    maps' shape and classes; and the evaluator with a net that thresholds
+    each voxel against the thresholded volume, exactly."""
+    import torch
+    from cvssl_tpu_torch.eval import val3d
+    from cvssl_tpu_torch.train.engine import Engine
+
+    engine = Engine(config_3d("uamt"))
+    state = engine.init_state()
+    patch = (PATCH_3D,) * 3
+    ev = val3d.SlidingWindowEvaluator(engine.predict_probs_fn("model", state),
+                                      patch, CLASSES_3D, 64, 64,
+                                      device=device)
+    n_win = len(ev.plan(BRATS_VOLUME)[2])
+    if n_win != SW_WINDOWS:
+        raise SystemExit(f"sliding window: {n_win} windows, not "
+                         f"{SW_WINDOWS}")
+    src = brats_volumes(device, SW_VOLUMES, seed=500)
+    vols = [src[i]["image"] for i in range(SW_VOLUMES)]
+    first = ev.predict_volume(vols[0])
+    if first.shape != BRATS_VOLUME or not set(np.unique(first)) <= {0, 1}:
+        raise SystemExit(f"sliding window: map {first.shape} "
+                         f"{np.unique(first)}")
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = None
+        for i in range(SW_VOLUMES + 1):
+            nxt = ev.predict_volume_async(vols[i]) if i < SW_VOLUMES \
+                else None
+            if pending is not None:
+                pending()
+            pending = nxt
+        rates.append(SW_VOLUMES / (time.perf_counter() - t0))
+
+    def threshold(x):
+        hi = (x > 0.5).float()
+        return torch.cat([1.0 - hi, hi], dim=1)
+    ev_t = val3d.SlidingWindowEvaluator(threshold, patch, CLASSES_3D, 64, 64,
+                                        device=device)
+    small = src[1]["image"][:90, :130, :140]   # under the patch on one axis
+    for vol in (vols[1], small):
+        got = ev_t.predict_volume(vol)
+        if not np.array_equal(got, (vol > 0.5).cpu().numpy()):
+            raise SystemExit(f"sliding window of a threshold net on "
+                             f"{tuple(vol.shape)}: not the threshold")
+    print(f"sliding window: {SW_VOLUMES} volumes of {BRATS_VOLUME}, "
+          f"{n_win} windows each, batches of {ev.patch_batch}, pipelined: "
+          f"{rates[0]:.3f} / {rates[1]:.3f} volumes/s; a threshold net's "
+          f"maps exact (also on {tuple(small.shape)}), on {card}")
+    return rates
+
+
+def run_fit_3d(device, card):
+    """Phase 8.6: ``fit`` of UAMT-3D at config 5 from the device store of
+    the 250 volumes (under the 8 GiB rule): 100 iterations with one
+    validation (4 val volumes of mixed shapes) and one checkpoint, then a
+    resume to 150; the files, the val table, kernel #1's launches (one
+    each way an iteration; their sum over both calls is returned),
+    volumes/s including validation, the val pass's seconds and the host's
+    HD95 share of it."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import (STORE_LIMIT_BYTES,
+                                                   DeviceVolumeStore)
+    from cvssl_tpu_torch.data.synthetic import blob_volumes
+    from cvssl_tpu_torch.eval import val3d
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, fit
+
+    train = brats_volumes(device)
+    est = DeviceVolumeStore.estimated_bytes(train, (PATCH_3D,) * 3)
+    if est >= STORE_LIMIT_BYTES:
+        raise SystemExit(f"3D store estimate {est} bytes: over the rule")
+    val = blob_volumes(VAL_3D_SHAPES, seed=20_000, num_classes=CLASSES_3D)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit3d_")
+    cfg = config_3d("uamt", val_every=FIT_3D_STEPS, ckpt_every=FIT_3D_STEPS,
+                    log_every=50, snapshot_root=tmp, exp="BraTS/smoke")
+    snap = cfg.snapshot_path()
+    hd95_s = []
+    inner = val3d.M.hd95
+
+    def timed_hd95(*a, **k):
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        hd95_s.append(time.perf_counter() - t0)
+        return out
+    val3d.M.hd95 = timed_hd95
+    done, total = 0, {}
+    try:
+        for steps in (FIT_3D_STEPS, FIT_3D_RESUME):
+            engine = Engine(cfg)
+            fcd.reset_launches()
+            t0 = time.perf_counter()
+            res = fit(cfg, engine=engine, max_steps=steps,
+                      data=(train, two_stream_3d(cfg.seed), val))
+            wall = time.perf_counter() - t0
+            launches = dict(fcd.LAUNCHES)
+            ran = steps - done
+            if res["iterations"] != steps or any(v != ran for v in
+                                                  launches.values()):
+                raise SystemExit(f"3D fit to {steps}: {res['iterations']} "
+                                 f"iterations, launches {launches}")
+            if not isinstance(engine.store, DeviceVolumeStore):
+                raise SystemExit(f"3D fit: store {engine.store}")
+            print(f"3D fit to {steps}: {ran} iterations, "
+                  f"{res['slices_per_sec']:.3f} volumes/s including "
+                  f"validation and checkpoints ({wall:.1f} s wall with the "
+                  f"store build), val passes "
+                  f"{[round(v, 3) for v in res['val_seconds']]} s, HD95 on "
+                  f"the host {sum(hd95_s):.3f} s in {len(hd95_s)} calls, "
+                  f"fused launches {launches}, best dice "
+                  f"{res['best_dice']}, on {card}")
+            done = steps
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        with open(os.path.join(snap, "log.txt")) as f:
+            if f"resumed from iteration {FIT_3D_STEPS}" not in f.read():
+                raise SystemExit("3D fit: no resume logged")
+        files = sorted(os.listdir(snap))
+        for name in (f"iter_{FIT_3D_STEPS}.ckpt",
+                     f"ema_model_iter_{FIT_3D_STEPS}.ckpt",
+                     f"model_iter_{FIT_3D_STEPS}.ckpt"):
+            if name not in files:
+                raise SystemExit(f"3D fit: no {name} in {files}")
+        if res["best_dice"]["model"] > 0 and not (
+                "unet_3D_best_model.ckpt" in files and glob.glob(
+                    os.path.join(snap, f"iter_{FIT_3D_STEPS}_dice_*.ckpt"))):
+            raise SystemExit(f"3D fit: no best-model files in {files}")
+        print(f"3D fit files: {files}")
+        hd95_s.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = engine.validate(res["state"], val)
+        val_s = time.perf_counter() - t0
+    finally:
+        val3d.M.hd95 = inner
+    if table.shape != (CLASSES_3D - 1, 2) or not (
+            np.isfinite(table).all() and (table[:, 0] >= 0).all()
+            and (table[:, 0] <= 1).all()):
+        raise SystemExit(f"3D val table {table}")
+    print(f"3D val table (dice, hd95): {table.tolist()} over "
+          f"{len(val)} volumes {[v['image'].shape for v in val]}; val pass "
+          f"{val_s:.3f} s, of which HD95 on the host {sum(hd95_s):.3f} s "
+          f"(share {sum(hd95_s) / val_s:.3f}), on {card}")
+    return total
+
+
+class HostVolumes:
+    """The 3D host path's train set: each volume through the host
+    transform, with its index."""
+
+    def __init__(self, base, transform):
+        self.base, self.transform = base, transform
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        from cvssl_tpu_torch.data.datasets import transform_sample
+        return {**transform_sample(self.transform, self.base[i]), "idx": i}
+
+
+def run_host_3d(card, strict):
+    """Phase 8.7, the 3D host path (``device_data=False``): 8 volumes of
+    140 x 180 x 180 in host memory, the reference's RandomRotFlip3D +
+    RandomCrop(96^3) drawing from the sampler's generator (as
+    ``build_3d_data`` pairs them); the host's time to load a batch of 4
+    (one thread) and to pin it; a few UAMT-3D steps from the pipeline's
+    pinned batches (under sync debug mode "error" if ``strict``)."""
+    import torch
+    from cvssl_tpu_torch.data import transforms as T
+    from cvssl_tpu_torch.data.pipeline import DataPipeline, pinned
+    from cvssl_tpu_torch.data.synthetic import blob_volumes
+    from cvssl_tpu_torch.train.engine import Engine
+
+    t0 = time.perf_counter()
+    base = blob_volumes([BRATS_VOLUME] * HOST_3D_VOLUMES, seed=30_000,
+                        num_classes=CLASSES_3D)
+    made = time.perf_counter() - t0
+
+    def data():
+        sampler = two_stream_3d(1, LABELED_BS_3D, HOST_3D_VOLUMES)
+        transform = T.Compose([T.RandomRotFlip3D(sampler.rng),
+                               T.RandomCrop((PATCH_3D,) * 3,
+                                            rng=sampler.rng)])
+        return HostVolumes(base, transform), sampler
+    pipe = DataPipeline(*data())
+    indices = pipe.batch_sampler.epochs()
+    load_s, pin_s = [], []
+    for _ in range(HOST_3D_TIMED):
+        t0 = time.perf_counter()
+        batch = pipe._load_batch(next(indices))
+        t1 = time.perf_counter()
+        pinned(batch)
+        load_s.append(t1 - t0)
+        pin_s.append(time.perf_counter() - t1)
+    load_ms, pin_ms = (float(np.median(v)) * 1e3 for v in (load_s, pin_s))
+    if batch["image"].shape != (BATCH_3D, 1) + (PATCH_3D,) * 3:
+        raise SystemExit(f"3D host batch {batch['image'].shape}")
+    print(f"3D host batch ({BATCH_3D} volumes of {BRATS_VOLUME} cropped to "
+          f"{PATCH_3D}^3, one thread, median of {HOST_3D_TIMED}; volumes "
+          f"made in {made:.1f} s): transform + collate {load_ms:.2f} ms, "
+          f"pinning {pin_ms:.2f} ms")
+    engine = Engine(config_3d("uamt", device_data=False))
+    state = engine.init_state()
+    stream = DataPipeline(*data(), pin_memory=True).stream()
+    try:
+        engine.train_step(state, engine.host_batch(next(stream)))
+        t0 = time.perf_counter()
+        for _ in range(HOST_3D_STEPS):
+            batch = next(stream)
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, metrics = engine.train_step(
+                    state, engine.host_batch(batch))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        loss = float(metrics["loss"])
+        step_ms = (time.perf_counter() - t0) / HOST_3D_STEPS * 1e3
+    finally:
+        stream.close()
+    if not math.isfinite(loss):
+        raise SystemExit(f"3D host path step: loss {loss}")
+    print(f"3D host path: {HOST_3D_STEPS} UAMT-3D steps from pinned batches"
+          f"{' under sync debug mode error' if strict else ''}, "
+          f"{step_ms:.2f} ms/step, loss {loss:.4f}, on {card}")
+    return load_ms
+
+
+def run_3d(device, card, strict, mem_bw, f32_rate):
+    """Phase 8: the 3D path. Kernel #1 at config 5's (2, 2, 96, 96, 96)
+    and a ragged (2, 2, 17, 19, 23), f32 and bf16 logits, int32 and uint8
+    labels, against float64 and bit-equal on repeat, and its time at
+    config 5's shape; the store of 250 volumes of 140 x 180 x 180 built on
+    the card; then :func:`run_3d_methods`, :func:`check_deep_sup_eval`,
+    :func:`run_sliding_window`, :func:`run_fit_3d` and
+    :func:`run_host_3d`, each part's seconds printed. Returns kernel #1's
+    errors and times at 5D and the launches of each 3D run."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceVolumeStore
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(5)
+    err = {"ce_dice_fwd": 0.0, "ce_dice_bwd": 0.0}
+    for shape, vector in ((SHAPE_3D, True), (RAGGED_3D, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for label_dtype in (torch.int32, torch.uint8):
+                check_case(device, gen, shape, dtype, label_dtype, False,
+                           vector, err)
+    timing = time_kernels(device, mem_bw, f32_rate, SHAPE_3D)
+    print(f"phase 8 part kernel #1 at 5D: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    store = DeviceVolumeStore(brats_volumes(device), (PATCH_3D,) * 3)
+    torch.cuda.synchronize()
+    print(f"3D store: {tuple(store.images.shape)} {store.images.dtype} + "
+          f"{store.labels.dtype}, "
+          f"{(store.images.nbytes + store.labels.nbytes) / 1e9:.3f} GB on "
+          f"{store.images.device}, drawn and built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    methods = run_3d_methods(card, strict, store)
+    del store
+    torch.cuda.empty_cache()
+    print(f"phase 8 part methods: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_deep_sup_eval(device)
+    rates = run_sliding_window(device, card)
+    print(f"phase 8 part deep-sup eval + sliding window: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    methods["uamt_3d_fit"] = {"launches": run_fit_3d(device, card)}
+    torch.cuda.empty_cache()
+    print(f"phase 8 part fit: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_host_3d(card, strict)
+    print(f"phase 8 part host path: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 8 (3D): {time.perf_counter() - t_phase:.1f} s")
+    return {"err": err, "timing": timing, "methods": methods,
+            "sw_volumes_per_s": rates}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2000,6 +2489,11 @@ def main(argv=None) -> int:
         help="build only csrc/conv3x3_p8.cu and run phase 6 (check, time "
         "and drive the conv kernels), then stop without the result line: "
         "the short first call after a change to the conv kernels")
+    parser.add_argument(
+        "--3d-only", dest="only_3d", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 8 (the 3D "
+        "path, its checked steps under sync debug mode \"error\"), then "
+        "stop without the result line")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2020,7 +2514,7 @@ def main(argv=None) -> int:
             built[name] = time.perf_counter() - t0
         except Exception as e:  # re-raised in the main thread below
             built[name] = e
-    sources = [("conv3x3_p8", cv._library)]
+    sources = [] if args.only_3d else [("conv3x3_p8", cv._library)]
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
     builders = {name: threading.Thread(target=build, args=(name, load))
@@ -2060,6 +2554,11 @@ def main(argv=None) -> int:
         return 0
 
     wait("fused_ce_dice")
+    if args.only_3d:
+        run_3d(device, smi, True, mem_bw, f32_rate)
+        print("chip_smoke --3d-only: phase 8 passed; no result line (the "
+              "other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -2079,6 +2578,8 @@ def main(argv=None) -> int:
     conv_launches = drive_conv(device)
     methods["contrastive_consistency"] = {
         "launches": run_fit(device, smi, strict)}
+    r3d = run_3d(device, smi, strict, mem_bw, f32_rate)
+    methods.update(r3d["methods"])
 
     source = "cvssl_tpu_torch/csrc/fused_ce_dice.cu"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",
@@ -2090,7 +2591,11 @@ def main(argv=None) -> int:
                 "max_abs_err": err[k], "ms": timing[k]["ms"],
                 "plain_ms": timing[k]["plain_ms"],
                 "bound_ms": timing[k]["bound_ms"],
-                "bound_by": timing[k]["bound_by"], "library_ms": None}
+                "bound_by": timing[k]["bound_by"], "library_ms": None,
+                "at_5d": {"shape": list(SHAPE_3D),
+                          "max_abs_err": r3d["err"][k],
+                          **{f: r3d["timing"][k][f] for f in
+                             ("ms", "plain_ms", "bound_ms", "bound_by")}}}
                for k in fcd.LAUNCHES]
     replaces = {"conv3x3_p8": "cvssl_tpu/ops/pallas_conv.py:215",
                 "conv3x3_p8_dma": "cvssl_tpu/ops/pallas_conv.py:112",

@@ -1,11 +1,14 @@
-"""h5 slice dataset + label-budget tables (port of
-``cvssl_tpu/data/datasets.py``: ``SliceDataset``, ``patients_to_slices`` and
-the ACDC/Prostate tables; ``VolumeDataset`` waits for the 3D slice).
+"""h5 slice and volume datasets + label-budget tables (port of
+``cvssl_tpu/data/datasets.py``: ``SliceDataset``, ``VolumeDataset``,
+``patients_to_slices`` and the ACDC/Prostate tables).
 
 * ``SliceDataset`` mirrors the reference's ``BaseDataSets``: list files
   ``train_slices.list`` / ``val.list``; train slices at
   ``data/slices/{case}.h5``, val volumes at ``data/{case}.h5``; each h5 holds
   ``image`` and ``label``.
+* ``VolumeDataset`` mirrors ``BraTS2019``: list files ``train.txt`` /
+  ``val.txt`` / ``test.txt`` (first comma field), volumes at
+  ``data/{name}.h5``.
 * ``patients_to_slices`` maps a labeled-patient budget to a slice count;
   unknown dataset names raise (the reference's 'Prostate' branch is
   always-true).
@@ -96,5 +99,44 @@ class SliceDataset:
                   "case": case}
         sample = transform_sample(self.transform, sample, ops_weak,
                                   ops_strong)
+        sample["idx"] = idx
+        return sample
+
+
+class VolumeDataset:
+    """3D volume dataset (BraTS2019 layout; reference
+    ``brats2019.py:11-46``). ``num`` keeps the first volumes of the list;
+    samples are float32 images and uint8 labels of the volume's own shape,
+    through the transform if there is one."""
+
+    def __init__(self, base_dir: str, split: str = "train",
+                 num: Optional[int] = None,
+                 transform: Optional[Callable] = None):
+        self.base_dir = base_dir
+        self.transform = transform
+        # the test split is what the reference's test_3D.py:33 evaluates
+        list_file = {"train": "train.txt", "val": "val.txt",
+                     "test": "test.txt"}[split]
+        with open(os.path.join(base_dir, list_file)) as f:
+            self.image_list = [ln.strip().split(",")[0] for ln in f
+                               if ln.strip()]
+        if num is not None:
+            self.image_list = self.image_list[:num]
+
+    def __len__(self):
+        return len(self.image_list)
+
+    def case_path(self, name: str) -> str:
+        return os.path.join(self.base_dir, "data", f"{name}.h5")
+
+    def __getitem__(self, idx: int) -> dict:
+        import h5py
+        name = self.image_list[idx]
+        with h5py.File(self.case_path(name), "r") as h5f:
+            image = h5f["image"][:]
+            label = h5f["label"][:]
+        sample = {"image": image.astype(np.float32),
+                  "label": label.astype(np.uint8), "case": name}
+        sample = transform_sample(self.transform, sample)
         sample["idx"] = idx
         return sample

@@ -1,8 +1,9 @@
-"""Device-resident 2D dataset + in-step augmentation (port of
+"""Device-resident datasets + in-step augmentation (port of
 ``cvssl_tpu/data/device_store.py``: ``DeviceSliceStore`` in
 ``mode="default"`` with ``gather_augment``, in ``mode="weak"`` with
 ``gather_weak`` (resize only), and in ``mode="weak_strong"`` with
-``gather_weak_strong``, FixMatch's weak and strong views).
+``gather_weak_strong``, FixMatch's weak and strong views; and the 3D
+``DeviceVolumeStore`` with ``gather_crop_rotflip``).
 
 All train slices live on the card, pre-zoomed to the patch size; per step
 only the batch indices cross from the host. The reference's RandomGenerator
@@ -11,8 +12,8 @@ the device, batched, with the JAX package's exact three-shear rotation, so
 the same indices and draws give the same batch as JAX, bit for bit.
 
 The random draws come from a ``torch.Generator`` (:func:`draw_augment`,
-:func:`draw_weak_strong`) and enter the gather functions as tensors, so a
-test can inject them.
+:func:`draw_weak_strong`, :func:`draw_crop_rotflip`) and enter the gather
+functions as tensors, so a test can inject them.
 """
 from __future__ import annotations
 
@@ -21,7 +22,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy import ndimage
+
+from cvssl_tpu_torch.data.transforms import pad_pads
 
 _MAX_ANGLE = 20
 # the JAX store's modes
@@ -281,3 +285,148 @@ def gather_weak_strong(images: torch.Tensor, labels: torch.Tensor,
     return {"image": img[:, None], "image_weak": weak[:, None],
             "image_strong": strong[:, None], "label_aug": lab_aug,
             "label": lab_aug, "idx": indices.to(torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# 3D volumes (the BraTS recipe: RandomRotFlip + RandomCrop,
+# ``brats2019.py:80-148``). JAX: ``device_store.py:284-363``.
+# ---------------------------------------------------------------------------
+
+# the JAX engine's rule (``engine.py:558-563``): the store is used while
+# its estimate stays under this many bytes, else the host pipeline
+STORE_LIMIT_BYTES = 8 * 1024 ** 3
+
+
+class DeviceVolumeStore:
+    """All train volumes resident on ``device``, each padded by the
+    reference's rule (``data/transforms.py::pad_pads``) and placed at the
+    origin of a common (n, D, H, W) shape, zeros beyond it: images in
+    ``image_dtype`` (bfloat16), labels uint8, and each volume's padded
+    extent (n, 3) int64, inside which every crop's corner is drawn.
+
+    Samples may be numpy arrays or tensors on any device; each is moved to
+    ``device`` and padded there one by one, so no host array of the whole
+    set is made (the device holds the volumes once more while they are
+    placed)."""
+
+    def __init__(self, dataset, patch_size, image_dtype=torch.bfloat16,
+                 device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DeviceVolumeStore: no CUDA device; pass "
+                               "device='cpu' to run on the CPU")
+        self.patch_size = tuple(int(p) for p in patch_size)
+        vols, labs = [], []
+        for i in range(len(dataset)):
+            sample = dataset[i]
+            vols.append(self._pad(sample["image"], image_dtype, device))
+            labs.append(self._pad(sample["label"], torch.uint8, device))
+        shapes = [tuple(v.shape) for v in vols]
+        top = tuple(max(sh[i] for sh in shapes) for i in range(3))
+        n = len(vols)
+        self.images = torch.zeros((n,) + top, dtype=image_dtype,
+                                  device=device)
+        self.labels = torch.zeros((n,) + top, dtype=torch.uint8,
+                                  device=device)
+        for i in range(n):
+            d, h, w = shapes[i]
+            self.images[i, :d, :h, :w] = vols[i]
+            self.labels[i, :d, :h, :w] = labs[i]
+            vols[i] = labs[i] = None
+        self.shapes = torch.tensor(shapes, dtype=torch.int64, device=device)
+
+    def _pad(self, x, dtype, device) -> torch.Tensor:
+        x = torch.as_tensor(x).to(device=device, dtype=dtype)
+        pads = pad_pads(tuple(x.shape), self.patch_size)
+        if pads is None:
+            return x
+        # F.pad takes the last axis first
+        flat = [p for q in reversed(pads) for p in (q, q)]
+        return F.pad(x, flat)
+
+    @staticmethod
+    def estimated_bytes(dataset, patch_size, bytes_per_voxel: int = 3):
+        """The store's size from the first volume's shape (at least the
+        patch on each axis), 2 bytes of image and 1 of label a voxel. JAX:
+        ``DeviceVolumeStore.estimated_bytes``."""
+        shape = np.maximum(np.asarray(dataset[0]["image"].shape),
+                           np.asarray(patch_size))
+        return int(len(dataset) * np.prod(shape) * bytes_per_voxel)
+
+    def arrays(self):
+        return (self.images, self.labels, self.shapes)
+
+    def batch_fn(self, arrays, indices: torch.Tensor,
+                 generator: Optional[torch.Generator] = None):
+        images, labels, shapes = arrays
+        draws = draw_crop_rotflip(shapes[indices], self.patch_size,
+                                  generator)
+        return gather_crop_rotflip(images, labels, indices, draws,
+                                   self.patch_size)
+
+
+def draw_crop_rotflip(shapes: torch.Tensor, patch,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """The per-sample draws of one 3D batch, on the shapes' device: the
+    crop's corner (B, 3), each coordinate uniform in [0, extent - patch]
+    (inclusive: JAX's ``randint(0, shape - patch + 1)``), k in {0..3} and
+    axis in {0, 1}."""
+    b, dev = shapes.shape[0], shapes.device
+    # per axis with Python ints: a host tensor of the patch would be a
+    # synchronising copy
+    room = torch.stack([shapes[:, i] - (int(p) - 1)
+                        for i, p in enumerate(patch)], dim=1)
+    u = torch.rand((b, 3), generator=generator, device=dev)
+    corner = torch.minimum((u * room).long(), room - 1)
+    k = torch.randint(0, 4, (b,), generator=generator, device=dev)
+    axis = torch.randint(0, 2, (b,), generator=generator, device=dev)
+    return {"corner": corner, "k": k, "axis": axis}
+
+
+def _rot_flip_source(n: int, k: torch.Tensor, axis: torch.Tensor):
+    """For flip(rot90(v, k, axes=(0, 1)), axis) of (n, n, ...) crops
+    (numpy's directions), the source coordinates (a, b) in the crop of each
+    output position (i, j): two (B, n, n) int64 tensors."""
+    dev = k.device
+    i = torch.arange(n, device=dev)[None, :, None]
+    j = torch.arange(n, device=dev)[None, None, :]
+    ax = axis[:, None, None]
+    # the flip: output (i, j) reads the rotated crop r at (p, q)
+    p = torch.where(ax == 0, n - 1 - i, i)
+    q = torch.where(ax == 1, n - 1 - j, j)
+    # rot90 by k: r[p, q] = v[a, b]
+    kk = k[:, None, None]
+    a = torch.where(kk == 0, p, torch.where(
+        kk == 1, q, torch.where(kk == 2, n - 1 - p, n - 1 - q)))
+    b = torch.where(kk == 0, q, torch.where(
+        kk == 1, n - 1 - p, torch.where(kk == 2, n - 1 - q, p)))
+    return a, b
+
+
+def gather_crop_rotflip(images: torch.Tensor, labels: torch.Tensor,
+                        indices: torch.Tensor,
+                        draws: Dict[str, torch.Tensor], patch):
+    """Batch assembly: for each sample the crop of ``patch`` at its drawn
+    corner (``brats2019.py:115-117``), then rot90(k) and a flip along axis
+    in the first two volume axes (``brats2019.py:131-148``), applied after
+    the crop as in JAX (its documented deviation from the reference's
+    order; the first two sides of the patch must be equal). The crop, the
+    rotation and the flip are one index map, so each of image and label is
+    one gather from the store. NCDHW float32 image + int32 label. JAX:
+    ``device_store.gather_crop_rotflip``."""
+    pd, ph, pw = (int(p) for p in patch)
+    if pd != ph:
+        raise ValueError(f"patch {tuple(patch)}: rot90 in the first two axes "
+                         "needs them equal")
+    corner = draws["corner"]
+    a, b = _rot_flip_source(pd, draws["k"], draws["axis"])
+    src_d = (corner[:, 0, None, None] + a)[..., None]
+    src_h = (corner[:, 1, None, None] + b)[..., None]
+    src_w = (corner[:, 2, None] + torch.arange(pw, device=corner.device)
+             )[:, None, None, :]
+    vol = indices.long()[:, None, None, None]
+    img = images[vol, src_d, src_h, src_w]
+    lab = labels[vol, src_d, src_h, src_w]
+    return {"image": img.to(torch.float32)[:, None],
+            "label": lab.to(torch.int32), "idx": indices.to(torch.int32)}

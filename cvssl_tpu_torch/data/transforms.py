@@ -1,15 +1,19 @@
-"""Host-side 2D augmentations, numpy + scipy (the port's own copy of the 2D
-transforms of ``cvssl_tpu/data/transforms.py`` that ``build_2d_data``
-uses: ``random_rot_flip``, ``random_rotate``, ``zoom_to``, ``color_jitter``,
-``RandomGenerator``, ``RandomGeneratorWeak`` and ``WeakStrongAugment``).
+"""Host-side augmentations, numpy + scipy (the port's own copy of the
+transforms of ``cvssl_tpu/data/transforms.py`` that ``build_2d_data`` and
+``build_3d_data`` use: in 2D ``random_rot_flip``, ``random_rotate``,
+``zoom_to``, ``color_jitter``, ``RandomGenerator``, ``RandomGeneratorWeak``
+and ``WeakStrongAugment``; in 3D ``pad_to_size``, ``CenterCrop``,
+``RandomCrop``, ``RandomRotFlip3D``, ``RandomNoise3D``,
+``CreateOnehotLabel`` and ``Compose``).
 
 They mirror the reference transforms of ``code/dataloaders/dataset.py``.
 Every stochastic transform takes an explicit ``numpy.random.Generator`` and
 makes the same draws in the same order as the JAX package's, so from the
 same seed both give the same arrays, bit for bit.
 
-Samples are dicts of 2D images (H, W) float32 and labels (H, W) int; the
-channel axis is added at collate time (``data/pipeline.py``, NCHW).
+Samples are dicts of images (H, W) or volumes (D, H, W) float32 and
+labels of the same shape, int; the channel axis is added at collate time
+(``data/pipeline.py``, NCHW / NCDHW).
 """
 from __future__ import annotations
 
@@ -116,3 +120,125 @@ class WeakStrongAugment:
         return {"image": image, "image_weak": image_weak.astype(np.float32),
                 "image_strong": image_strong, "label_aug": label,
                 "label": label}
+
+
+# ---------------------------------------------------------------------------
+# 3D (the BraTS recipe, ``brats2019.py:48-188``)
+# ---------------------------------------------------------------------------
+
+def pad_pads(shape: Sequence[int], output_size: Sequence[int],
+             extra: int = 3):
+    """The reference's pad rule (``brats2019.py:97-108``): if any axis is
+    at most its target, every axis is padded by (target - dim) // 2 + 3 on
+    both sides (none where that is negative); else no padding. Returns the
+    per-axis pad, or None."""
+    if not any(shape[i] <= output_size[i] for i in range(3)):
+        return None
+    return [max((output_size[i] - shape[i]) // 2 + extra, 0)
+            for i in range(3)]
+
+
+def pad_to_size(arr: np.ndarray, output_size: Sequence[int]) -> np.ndarray:
+    """``arr`` zero-padded by :func:`pad_pads`. JAX:
+    ``transforms._pad_to_size``."""
+    pads = pad_pads(arr.shape, output_size)
+    if pads is None:
+        return arr
+    return np.pad(arr, [(p, p) for p in pads], mode="constant",
+                  constant_values=0)
+
+
+class CenterCrop:
+    """Pad by the reference rule, then the centred crop
+    (``brats2019.py:48-77``)."""
+
+    def __init__(self, output_size: Sequence[int]):
+        self.output_size = tuple(output_size)
+
+    def __call__(self, sample):
+        image = pad_to_size(sample["image"], self.output_size)
+        label = pad_to_size(sample["label"], self.output_size)
+        starts = [int(round((image.shape[i] - self.output_size[i]) / 2.0))
+                  for i in range(3)]
+        sl = tuple(slice(s, s + o) for s, o in zip(starts, self.output_size))
+        return {"image": image[sl], "label": label[sl]}
+
+
+class RandomCrop:
+    """Pad by the reference rule, then a crop at a corner drawn per axis
+    from [0, dim - target) (``brats2019.py:80-128``; the reference's
+    exclusive upper bound, so the last corner is never drawn)."""
+
+    def __init__(self, output_size: Sequence[int], with_sdf: bool = False,
+                 rng=None):
+        self.output_size = tuple(output_size)
+        self.with_sdf = with_sdf
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, sample):
+        image = pad_to_size(sample["image"], self.output_size)
+        label = pad_to_size(sample["label"], self.output_size)
+        starts = [int(self.rng.integers(0, image.shape[i]
+                                        - self.output_size[i]))
+                  for i in range(3)]
+        sl = tuple(slice(s, s + o) for s, o in zip(starts, self.output_size))
+        out = {"image": image[sl], "label": label[sl]}
+        if self.with_sdf:
+            out["sdf"] = pad_to_size(sample["sdf"], self.output_size)[sl]
+        return out
+
+
+class RandomRotFlip3D:
+    """rot90 by k ~ U{0..3} in the first two axes, then a flip along axis
+    ~ U{0, 1} (``brats2019.py:131-148``)."""
+
+    def __init__(self, rng=None):
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, sample):
+        image, label = random_rot_flip(self.rng, sample["image"],
+                                       sample["label"])
+        return {"image": image, "label": label}
+
+
+class RandomNoise3D:
+    """Additive noise clip(sigma N(0, 1), -2 sigma, 2 sigma) + mu
+    (``brats2019.py:150-162``)."""
+
+    def __init__(self, mu: float = 0.0, sigma: float = 0.1, rng=None):
+        self.mu, self.sigma = mu, sigma
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, sample):
+        image = sample["image"]
+        noise = np.clip(self.sigma * self.rng.standard_normal(image.shape),
+                        -2 * self.sigma, 2 * self.sigma) + self.mu
+        return {"image": image + noise, "label": sample["label"]}
+
+
+class CreateOnehotLabel:
+    """The one-hot label beside the sample's keys (``brats2019.py:164-175``),
+    class axis first, (C, D, H, W), as the port's NCDHW layout has it (JAX's
+    is last)."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+
+    def __call__(self, sample):
+        label = sample["label"]
+        onehot = np.stack([(label == i).astype(np.float32)
+                           for i in range(self.num_classes)])
+        return {**sample, "onehot_label": onehot}
+
+
+class Compose:
+    """Sequential composition (torchvision ``Compose``,
+    ``train_mean_teacher_3D.py:98-101``)."""
+
+    def __init__(self, transforms):
+        self.transforms = list(transforms)
+
+    def __call__(self, sample):
+        for t in self.transforms:
+            sample = t(sample)
+        return sample

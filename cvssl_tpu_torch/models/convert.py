@@ -36,8 +36,20 @@ The contrastive heads keep the reference's names: ``conv_{i}.conv`` and
 ``conv_{i}.bn`` are Flax's ``_ConvBNRelu_{i-1}``'s ``Conv_0`` and
 ``BatchNorm_0``, the classifier's ``final`` its ``Conv_0``.
 
-Conv kernels go from (kh, kw, in, out) to (out, in, kh, kw), Dense kernels
-from (in, out) to (out, in); LayerNorm's ``scale`` is ``weight``.
+The 3D nets keep the original torch names, as ``cvssl_tpu/models/
+torch_convert.py::convert_unet3d_checkpoint`` reads them: Flax's
+``UnetConv3_0..4`` are ``conv1``..``conv4`` and ``center`` (their
+``Conv_0``/``Conv_1`` are ``conv1.0``/``conv2.0``), ``UnetUp3CT_0..3`` are
+``up_concat4``..``up_concat1`` (``.conv``), the top-level ``Conv_0`` is
+``final`` (``unet_3D``) or ``dsv1`` (``unet_3D_dv_semi``, whose
+``UnetDsv3_0..2`` are ``dsv4``..``dsv2``, ``.dsv.0``). The 3D
+discriminator (``discriminator_3d`` here; ``discriminator`` in the 3D
+registry) is the 2D one's names with a plain Dense: its classifier takes
+the global mean's channel vector.
+
+Conv kernels go from (kh, kw, in, out) to (out, in, kh, kw), or (kd, kh,
+kw, in, out) to (out, in, kd, kh, kw); Dense kernels from (in, out) to
+(out, in); LayerNorm's ``scale`` is ``weight``.
 """
 from __future__ import annotations
 
@@ -113,6 +125,31 @@ def _discriminator() -> List[Leaf]:
                    "dense:conv4.bias"),
                   ("classifier.bias", "params", ("Dense_0", "bias"),
                    "plain")]
+
+
+def _discriminator_3d() -> List[Leaf]:
+    out = [leaf for i in range(5) for leaf in _conv(f"conv{i}",
+                                                    (f"Conv_{i}",))]
+    return out + _dense("classifier", ("Dense_0",))
+
+
+def _unet_conv3(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    return (_conv(f"{port}.conv1.0", path + ("Conv_0",))
+            + _conv(f"{port}.conv2.0", path + ("Conv_1",)))
+
+
+def _unet_3d(deep_sup: bool) -> List[Leaf]:
+    out = []
+    for i, name in enumerate(("conv1", "conv2", "conv3", "conv4", "center")):
+        out += _unet_conv3(name, (f"UnetConv3_{i}",))
+    for i, k in enumerate((4, 3, 2, 1)):
+        out += _unet_conv3(f"up_concat{k}.conv",
+                           (f"UnetUp3CT_{i}", "UnetConv3_0"))
+    if not deep_sup:
+        return out + _conv("final", ("Conv_0",))
+    for i, k in enumerate((4, 3, 2)):
+        out += _conv(f"dsv{k}.dsv.0", (f"UnetDsv3_{i}", "Conv_0"))
+    return out + _conv("dsv1", ("Conv_0",))
 
 
 def _head(blocks: int, final: bool) -> List[Leaf]:
@@ -209,6 +246,10 @@ def leaves(net_type: str, depths: Sequence[int] = (2, 2, 2, 2)
     flax trees (``depths``: SwinUnet's stages)."""
     if net_type == "discriminator":
         return _discriminator()
+    if net_type == "discriminator_3d":
+        return _discriminator_3d()
+    if net_type in ("unet_3D", "unet_3D_dv_semi"):
+        return _unet_3d(net_type == "unet_3D_dv_semi")
     if net_type in ("swin_unet", "ViT_Seg"):
         return _swin_unet(depths)
     if net_type == "projector":
@@ -249,8 +290,9 @@ def state_dict_from_flax(net_type: str, params: Mapping,
             sd[key] = np.zeros((), np.int64)
             continue
         v = np.asarray(_get(trees[coll], path))
-        if kind == "kernel":
-            v = np.transpose(v, (3, 2, 0, 1))
+        if kind == "kernel":            # (*k, in, out) -> (out, in, *k)
+            v = np.transpose(v, (v.ndim - 1, v.ndim - 2)
+                             + tuple(range(v.ndim - 2)))
         elif kind == "dense":
             v = v.T
         elif kind.startswith("dense:"):        # (h*w*c, out) -> (out, c*h*w)
@@ -272,8 +314,8 @@ def flax_from_state_dict(net_type: str, state_dict: Mapping
             continue
         v = state_dict[key]
         v = np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
-        if kind == "kernel":
-            v = np.transpose(v, (2, 3, 1, 0))
+        if kind == "kernel":            # (out, in, *k) -> (*k, in, out)
+            v = np.transpose(v, tuple(range(2, v.ndim)) + (1, 0))
         elif kind == "dense":
             v = v.T
         elif kind.startswith("dense:"):        # (out, c*h*w) -> (h*w*c, out)

@@ -1,12 +1,14 @@
-"""2D model registry (port of ``cvssl_tpu/models/factory.py``; the UNet
-family, the discriminator, SwinUnet and the contrastive heads so far)."""
+"""Model registries (port of ``cvssl_tpu/models/factory.py``): in 2D the
+UNet family, the discriminator, SwinUnet and the contrastive heads; in 3D
+``unet_3D``, ``unet_3D_dv_semi`` and the discriminator so far."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from torch import nn
 
-from cvssl_tpu_torch.models import discriminator, projector, swin_unet, unet
+from cvssl_tpu_torch.models import (discriminator, projector, swin_unet,
+                                    unet, unet3d)
 
 _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "unet": lambda in_chns, class_num, **kw: unet.UNet(
@@ -34,6 +36,16 @@ _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
 }
 _REGISTRY_2D["ViT_Seg"] = _REGISTRY_2D["swin_unet"]
 
+_REGISTRY_3D: Dict[str, Callable[..., nn.Module]] = {
+    "unet_3D": lambda in_chns, class_num, **kw: unet3d.UNet3D(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "unet_3D_dv_semi": lambda in_chns, class_num, **kw:
+        unet3d.UNet3DDeepSup(in_chns=in_chns, num_classes=class_num, **kw),
+    "discriminator": lambda in_chns, class_num, **kw:
+        discriminator.FC3DDiscriminator(num_classes=class_num,
+                                        in_chns=in_chns, **kw),
+}
+
 
 def net_factory(net_type: str = "unet", in_chns: int = 1,
                 class_num: int = 3, **kwargs) -> nn.Module:
@@ -42,4 +54,14 @@ def net_factory(net_type: str = "unet", in_chns: int = 1,
         raise ValueError(
             f"unknown 2D net {net_type!r}; available: {sorted(_REGISTRY_2D)}")
     return _REGISTRY_2D[net_type](in_chns=in_chns, class_num=class_num,
+                                  **kwargs)
+
+
+def net_factory_3d(net_type: str = "unet_3D", in_chns: int = 1,
+                   class_num: int = 2, **kwargs) -> nn.Module:
+    """3D registry (reference ``net_factory_3d.py:10-41``)."""
+    if net_type not in _REGISTRY_3D:
+        raise ValueError(
+            f"unknown 3D net {net_type!r}; available: {sorted(_REGISTRY_3D)}")
+    return _REGISTRY_3D[net_type](in_chns=in_chns, class_num=class_num,
                                   **kwargs)

@@ -53,7 +53,8 @@ class TrainConfig:
 
     # semi-supervision
     labeled_bs: int = 12
-    labeled_num: int = 7               # patients (slice-count table)
+    labeled_num: int = 7               # patients (slice-count table);
+                                       # 3D: labeled volumes
     labeled_slices_override: Optional[int] = None  # bypass the table
     total_num: Optional[int] = None    # unlabeled pool size (3D: 250)
     ema_decay: float = 0.99
@@ -107,7 +108,9 @@ class TrainConfig:
     @property
     def labeled_slices(self) -> int:
         """Labeled train slices: the override, else the dataset's
-        patients-to-slices table."""
+        patients-to-slices table. 2D only: at ``dim=3`` ``labeled_num``
+        counts volumes and ``total_num`` the unlabeled pool (JAX
+        ``engine.build_3d_data``)."""
         if self.labeled_slices_override is not None:
             return self.labeled_slices_override
         from cvssl_tpu_torch.data.datasets import patients_to_slices
@@ -132,9 +135,9 @@ class TrainConfig:
         return getattr(torch, dt)
 
     # the nets whose JAX module takes the compute dtype
-    # (``cvssl_tpu.train.config.TrainConfig.model_kwargs``); JAX's
-    # ``unet_3D`` and ``unet_3D_dv_semi`` join them with the 3D port
-    COMPUTE_DTYPE_NETS = ("unet", "swin_unet", "ViT_Seg")
+    # (``cvssl_tpu.train.config.TrainConfig.model_kwargs``)
+    COMPUTE_DTYPE_NETS = ("unet", "swin_unet", "ViT_Seg", "unet_3D",
+                          "unet_3D_dv_semi")
     VIT_NETS = ("swin_unet", "ViT_Seg")
 
     def model_kwargs(self, net_type: str) -> dict:

@@ -1,8 +1,8 @@
 """The training engine (port of ``cvssl_tpu/train/engine.py``: state
 construction, the step body, the device-store path, a K-step loop standing
 in for ``train_steps_scan``, the host pipeline's batches, the eval-mode
-predictor, 2D validation, and the ``fit`` loop with its validation and
-checkpoint cadence).
+predictors, 2D validation and 3D sliding-window validation, and the
+``fit`` loop with its validation and checkpoint cadence, in 2D and 3D).
 
 One step: zero the gradients, run the method's loss through a ``StepCtx``
 (student and teacher forwards in train mode, each model under bfloat16
@@ -22,12 +22,15 @@ Numerics on the card: float32 matmuls and convolutions run in full float32
 TF32); under ``dtype="auto"`` the plain UNet's convolutions and SwinUnet's
 matmuls run in bfloat16 through autocast, with float32 parameters,
 BatchNorm statistics and losses; the UNet variants and the discriminator
-run in float32, as in JAX (``TrainConfig.model_dtype``).
+run in float32, as in JAX (``TrainConfig.model_dtype``); the 3D UNets
+compute in bfloat16 as the plain UNet does, and their discriminator in
+float32.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import os
 import time
 from typing import Callable, Dict, Optional, Sequence
@@ -36,12 +39,14 @@ import numpy as np
 import torch
 
 from cvssl_tpu_torch.data import transforms as T
-from cvssl_tpu_torch.data.datasets import SliceDataset
-from cvssl_tpu_torch.data.device_store import STORE_MODES, DeviceSliceStore
+from cvssl_tpu_torch.data.datasets import SliceDataset, VolumeDataset
+from cvssl_tpu_torch.data.device_store import (STORE_LIMIT_BYTES,
+                                               STORE_MODES, DeviceSliceStore,
+                                               DeviceVolumeStore)
 from cvssl_tpu_torch.data.pipeline import DataPipeline
 from cvssl_tpu_torch.data.sampler import (ShuffleBatchSampler,
                                           TwoStreamBatchSampler)
-from cvssl_tpu_torch.eval import val2d
+from cvssl_tpu_torch.eval import val2d, val3d
 from cvssl_tpu_torch.ops import edt
 from cvssl_tpu_torch.ops.ema import ema_decay_schedule, ema_update
 from cvssl_tpu_torch.train.config import TrainConfig
@@ -71,6 +76,9 @@ class Engine:
         # on the card the val set is uploaded once (key: id of the dataset,
         # patch size; the entry holds the dataset, so the id stays its own)
         self._val_store: Dict[tuple, Optional[dict]] = {}
+        # 3D: one sliding-window evaluator per (model slot, patch), which
+        # keeps its count maps across validations
+        self._evaluators: Dict[tuple, val3d.SlidingWindowEvaluator] = {}
 
     # ------------------------------------------------------------------
     # state construction
@@ -188,36 +196,63 @@ class Engine:
     # ------------------------------------------------------------------
     # prediction
     # ------------------------------------------------------------------
+    def eval_logits(self, name: str, model, x: torch.Tensor) -> torch.Tensor:
+        """``model``'s (in slot ``name``) main logits of x, float32:
+        eval-mode forward (running BatchNorm statistics, no dropout) in the
+        slot's compute dtype, no gradient."""
+        ctx = StepCtx(self.cfg, {name: model}, {}, None, 0,
+                      self.model_dtypes)
+        with torch.no_grad():
+            out = self.method.primary_logits(
+                ctx.forward(name, x.to(self.device), train=False))
+        return out.float()
+
+    def eval_probs(self, name: str, model, x: torch.Tensor) -> torch.Tensor:
+        """The softmax of :meth:`eval_logits` over the classes."""
+        return torch.softmax(self.eval_logits(name, model, x), dim=1)
+
     def predict_fn(self, name: str, state: TrainState,
                    teacher: bool = False):
-        """Batched argmax predictor: x (B, C_in, H, W) -> uint8 (B, H, W),
-        eval-mode forward (running BatchNorm statistics, no dropout)."""
+        """Batched argmax predictor: x (B, C_in, *spatial) -> uint8 (B,
+        *spatial)."""
         model = (state.teachers if teacher else state.models)[name]
-        ctx = StepCtx(self.cfg, {name: model}, {}, None, state.step,
-                      self.model_dtypes)
+        return lambda x: self.eval_logits(name, model, x).argmax(
+            dim=1).to(torch.uint8)
 
-        def predict(x: torch.Tensor) -> torch.Tensor:
-            with torch.no_grad():
-                out = self.method.primary_logits(
-                    ctx.forward(name, x.to(self.device), train=False))
-            return out.float().argmax(dim=1).to(torch.uint8)
-        return predict
+    def predict_probs_fn(self, name: str, state: TrainState,
+                         teacher: bool = False):
+        """Batched softmax predictor (the 3D sliding window): x (B, C_in,
+        *spatial) -> float32 (B, classes, *spatial)."""
+        model = (state.teachers if teacher else state.models)[name]
+        return lambda x: self.eval_probs(name, model, x)
 
     # ------------------------------------------------------------------
     # validation
     # ------------------------------------------------------------------
     def validate(self, state: TrainState, val_dataset, name: str = None):
-        """Per-class (dice, hd95) means over a 2D val set of volumes,
-        (classes-1, 2). On the card a uniform val set at patch resolution
-        is uploaded once and the forward, argmax and EDT metrics all run
-        there, so only the (classes-1, 2) table comes back; otherwise
-        ``val2d.evaluate``."""
+        """Per-class (dice, hd95) means over a val set of volumes,
+        (classes-1, 2). In 3D the sliding window at the patch, stride 64
+        on every axis (JAX ``engine.py:393-408``), through one cached
+        evaluator per slot that predicts with the model it is given
+        (:func:`val3d.test_all_case`). In 2D, on the card a uniform val set
+        at patch resolution is uploaded once and the forward, argmax and
+        EDT metrics all run there, so only the (classes-1, 2) table comes
+        back; otherwise ``val2d.evaluate``."""
         name = name or self.method.eval_model_names()[0]
         size = self.cfg.patch_size
         if self.cfg.patch_size2 and name == "model2":
             size = self.cfg.patch_size2
         if self.cfg.dim == 3:
-            raise NotImplementedError("3D validation is not ported yet")
+            key = (name, tuple(size))
+            if key not in self._evaluators:
+                self._evaluators[key] = val3d.SlidingWindowEvaluator(
+                    functools.partial(self.eval_probs, name), size,
+                    self.cfg.num_classes, 64, 64, predict_takes_args=True,
+                    device=self.device)
+            return val3d.test_all_case(
+                None, val_dataset, self.cfg.num_classes, size,
+                evaluator=self._evaluators[key],
+                predict_args=state.models[name])
         if self.device.type == "cuda":
             store = self._val_resident_store(val_dataset, tuple(size))
             if store is not None:
@@ -266,6 +301,30 @@ class Engine:
 # ---------------------------------------------------------------------------
 # The full training loop (reference ``train()`` parity)
 # ---------------------------------------------------------------------------
+
+def build_3d_data(cfg: TrainConfig, supervised_only: bool,
+                  raw: bool = False):
+    """The BraTS recipe (``train_mean_teacher_3D.py:98-113``): the host
+    transform RandomRotFlip3D then RandomCrop(patch), sharing the sampler's
+    generator (none with ``raw=True``: the store crops and rotates in the
+    step); ``labeled_num`` counts labeled volumes, and the unlabeled pool
+    ends at ``total_num`` (the reference's 250; default: every train
+    volume). JAX: ``engine.build_3d_data``."""
+    rng = np.random.default_rng(cfg.seed)
+    transform = None if raw else T.Compose(
+        [T.RandomRotFlip3D(rng), T.RandomCrop(cfg.patch_size, rng=rng)])
+    if supervised_only:
+        train_ds = VolumeDataset(cfg.root_path, "train", num=cfg.labeled_num,
+                                 transform=transform)
+        sampler = ShuffleBatchSampler(len(train_ds), cfg.batch_size, rng)
+    else:
+        train_ds = VolumeDataset(cfg.root_path, "train", transform=transform)
+        total = cfg.total_num or len(train_ds)
+        sampler = TwoStreamBatchSampler(
+            list(range(cfg.labeled_num)), list(range(cfg.labeled_num, total)),
+            cfg.batch_size, cfg.batch_size - cfg.labeled_bs, rng)
+    return train_ds, sampler, VolumeDataset(cfg.root_path, "val")
+
 
 def build_2d_data(cfg: TrainConfig, supervised_only: bool,
                   transform_name: str = "default", raw: bool = False):
@@ -351,8 +410,12 @@ CTA_HOOKS = ("create_transform", "on_epoch_start", "on_batch",
 def _check_ported(cfg: TrainConfig, method: Method):
     """``fit`` raises for what this port does not run yet, rather than
     running something else."""
-    if cfg.dim != 2:
-        raise NotImplementedError("dim=3: the 3D path is not ported yet")
+    if cfg.dim not in (2, 3):
+        raise ValueError(f"dim={cfg.dim}: 2 or 3")
+    if cfg.dim == 3 and method.transform == "cta":
+        raise NotImplementedError(
+            f"method {cfg.method!r} trains on CTAugment, a 2D transform; "
+            "it has no 3D data path")
     if method.transform == "cta":
         missing = [h for h in CTA_HOOKS if not hasattr(method, h)]
         if missing:
@@ -380,14 +443,21 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     checkpoints, resume from the newest full-state checkpoint.
 
     ``data`` is the (train_ds, sampler, val_ds) triple of
-    :func:`build_2d_data` or :func:`build_cta_data` (for the host path,
-    with the transform on ``train_ds``); None builds it from
-    ``cfg.root_path``. The engine defaults to ``Engine(cfg,
+    :func:`build_2d_data`, :func:`build_3d_data` or :func:`build_cta_data`
+    (for the host path, with the transform on ``train_ds``); None builds it
+    from ``cfg.root_path``. The engine defaults to ``Engine(cfg,
     device=device)``.
 
     The batches come from the device store, or with ``device_data=False``
     from the host pipeline (``DataPipeline.stream()``, one step a batch,
     pinned and copied to the card without blocking), as JAX's rule picks.
+    At ``dim=3`` the store is ``DeviceVolumeStore`` (crop, rot90 and flip
+    in the step) while its estimate stays under 8 GiB (JAX
+    ``engine.py:558-563``), else the host pipeline with RandomRotFlip3D +
+    RandomCrop; a given ``data`` then has its train set raw where the
+    store takes it, and with the host transform where it does not
+    (``DeviceVolumeStore.estimated_bytes`` decides). Validation is the
+    sliding window (:meth:`Engine.validate`).
     A method on CTAugment (``transform == "cta"``) always takes the host
     path, the pipeline with the method's policies
     (``DataPipeline(policy=...)``), and ``fit`` drives its hooks in JAX's
@@ -421,14 +491,24 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     # takes the host path
     cta = method.transform == "cta"
     use_store = cfg.device_data and not cta
-    if data is None:
+    if cfg.dim == 3:
+        if use_store:
+            probe = data[0] if data is not None else VolumeDataset(
+                cfg.root_path, "train")
+            use_store = DeviceVolumeStore.estimated_bytes(
+                probe, cfg.patch_size) < STORE_LIMIT_BYTES
+        if data is None:
+            data = build_3d_data(cfg, method.supervised_only, raw=use_store)
+    elif data is None:
         data = build_cta_data(cfg, method) if cta else build_2d_data(
             cfg, method.supervised_only, method.transform, raw=use_store)
     train_ds, sampler, val_ds = data
     if use_store:
-        engine.attach_store(DeviceSliceStore(train_ds, cfg.patch_size,
-                                             device=engine.device,
-                                             mode=engine.method.transform))
+        engine.attach_store(
+            DeviceVolumeStore(train_ds, cfg.patch_size, device=engine.device)
+            if cfg.dim == 3 else
+            DeviceSliceStore(train_ds, cfg.patch_size, device=engine.device,
+                             mode=engine.method.transform))
         index_stream = sampler.epochs()
         logger.info("device-resident dataset: %d samples on %s",
                     len(train_ds), engine.device)
@@ -592,8 +672,9 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     throughput = images_seen / elapsed if elapsed > 0 else 0.0
     saver.close()  # join outstanding checkpoint writes before returning
     writer.close()
-    logger.info("training finished: %.2f slices/sec, best dice %s",
-                throughput, best_dice)
+    logger.info("training finished: %.2f %s/sec, best dice %s",
+                throughput, "volumes" if cfg.dim == 3 else "slices",
+                best_dice)
     return {"best_dice": best_dice, "iterations": it,
             "slices_per_sec": throughput, "val_seconds": val_seconds,
             "state": state}

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from cvssl_tpu_torch.models import net_factory
+from cvssl_tpu_torch.models import net_factory, net_factory_3d
 from cvssl_tpu_torch.ops import losses, schedules
 from cvssl_tpu_torch.train.methods.base import Method, register_method
 
@@ -26,11 +26,17 @@ class AdversarialNetwork(Method):
         return {"model": self.cfg.model, "dan": "discriminator"}
 
     def build_models(self):
+        """The segmenter and the discriminator: at ``dim=3`` the 3D
+        registry's (``FC3DDiscriminator``, JAX ``adversarial.py:27-33``),
+        else the 2D one, whose classifier's width follows the patch."""
         cfg = self.cfg
-        return {"model": self._factory(cfg.model),
-                "dan": net_factory("discriminator", cfg.in_channels,
-                                   cfg.num_classes,
-                                   patch_size=cfg.patch_size)}
+        if cfg.dim == 3:
+            dan = net_factory_3d("discriminator", cfg.in_channels,
+                                 cfg.num_classes)
+        else:
+            dan = net_factory("discriminator", cfg.in_channels,
+                              cfg.num_classes, patch_size=cfg.patch_size)
+        return {"model": self._factory(cfg.model), "dan": dan}
 
     def optimizers(self, models):
         cfg = self.cfg

@@ -13,7 +13,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from cvssl_tpu_torch.models import net_factory
+from cvssl_tpu_torch.models import net_factory, net_factory_3d
 from cvssl_tpu_torch.ops import losses, schedules
 
 _REGISTRY: Dict[str, type] = {}
@@ -63,11 +63,11 @@ class Method:
 
     # -- construction -----------------------------------------------------
     def _factory(self, net_type: str) -> nn.Module:
-        if self.cfg.dim != 2:
-            raise NotImplementedError("3D models are not ported yet")
-        return net_factory(net_type, self.cfg.in_channels,
-                           self.cfg.num_classes,
-                           **self.cfg.model_kwargs(net_type))
+        """``net_type`` from the 2D registry, or the 3D one at ``dim=3``
+        (JAX ``base.py:58-64``)."""
+        factory = net_factory_3d if self.cfg.dim == 3 else net_factory
+        return factory(net_type, self.cfg.in_channels, self.cfg.num_classes,
+                       **self.cfg.model_kwargs(net_type))
 
     def net_types(self) -> Dict[str, str]:
         """The registered net type of each model slot; it also decides the

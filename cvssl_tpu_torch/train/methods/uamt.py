@@ -1,6 +1,6 @@
-"""Uncertainty-aware mean teacher, 2D (port of
+"""Uncertainty-aware mean teacher, 2D and 3D (port of
 ``cvssl_tpu/train/methods/uamt.py``;
-``train_uncertainty_aware_mean_teacher_2D.py``)."""
+``train_uncertainty_aware_mean_teacher_2D.py`` / ``_3D.py``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,9 +28,11 @@ class UncertaintyAwareMeanTeacher(Method):
     statistics. A stats-free teacher (SwinUnet's LayerNorm), or odd T, runs
     one pass over the T-tiled batch: no sample is coupled to another, so
     this is the reference's passes in one batch, and SwinUnet's stochastic
-    depth draws one mask over the T * u samples, as JAX's. JAX's third
-    branch, the 3D teacher's fused (T + 1) * u batch, waits for the 3D
-    models."""
+    depth draws one mask over the T * u samples, as JAX's. A stats-free 3D
+    teacher (UNet3D's InstanceNorm) also takes the consistency-target
+    batch into that pass: ONE forward over the (T + 1) * u batch
+    [ema_inputs, tiled + noise] (JAX ``uamt.py:46-53``), so its dropout
+    bytes are one draw over the (T + 1) * u volumes, as JAX's."""
 
     teacher_names = ("model",)
 
@@ -50,17 +52,22 @@ class UncertaintyAwareMeanTeacher(Method):
 
         tiled = unlabeled_img.repeat((T,) + (1,) * (unlabeled_img.ndim - 1))
         mc_noise = torch.clamp(0.1 * ctx.normal(tiled.shape, dev), -0.2, 0.2)
-        # JAX's fused (T + 1) * u branch for stats-free 3D teachers
-        # (``uamt.py:46-53``) comes with the 3D models
-        ema_logits = self.primary_logits(
-            ctx.forward_teacher("model", ema_inputs))
-        if has_batch_stats(ctx.teachers["model"]) and T % 2 == 0:
+        has_bn = has_batch_stats(ctx.teachers["model"])
+        if cfg.dim == 3 and not has_bn:
+            all_logits = self.primary_logits(ctx.forward_teacher(
+                "model", torch.cat([ema_inputs, tiled + mc_noise])))
+            ema_logits, mc_logits = all_logits[:u], all_logits[u:]
+        elif has_bn and T % 2 == 0:
+            ema_logits = self.primary_logits(
+                ctx.forward_teacher("model", ema_inputs))
             groups = (tiled + mc_noise).reshape((T // 2, 2 * u)
                                                 + tiled.shape[1:])
             mc = self.primary_logits(
                 ctx.forward_teacher_scan("model", groups))
             mc_logits = mc.reshape((T * u,) + mc.shape[2:])
         else:
+            ema_logits = self.primary_logits(
+                ctx.forward_teacher("model", ema_inputs))
             mc_logits = self.primary_logits(
                 ctx.forward_teacher("model", tiled + mc_noise))
         preds = torch.softmax(mc_logits.float(), dim=1)

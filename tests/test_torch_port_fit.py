@@ -438,17 +438,19 @@ def test_fit_entropy_seed_when_not_deterministic(trees, tmp_path):
                                     "profile", "pretrained"])
 def test_fit_raises_for_what_is_not_ported(trees, tmp_path, change):
     _, troot = trees
-    kw = {"dim3": dict(dim=3), "host_data": dict(device_data=False),
+    kw = {"dim3": dict(dim=3), "host_data": dict(dim=3, device_data=False),
           "profile": dict(profile_dir=str(tmp_path / "prof")),
           "pretrained": dict(pretrained_ckpt=str(tmp_path / "missing.pth"))
           }.get(change, {})
     cfg = _fit_cfg(troot, tmp_path, **kw)
-    if change == "host_data":
-        # the host pipeline and the CTA path are ported; the 3D host path
-        # is not
-        cfg = _fit_cfg(troot, tmp_path, dim=3, **kw)
-        with pytest.raises(NotImplementedError, match="dim=3"):
-            fit(cfg, max_steps=1, device="cpu")
+    if change in ("dim3", "host_data"):
+        # the 3D path is ported, on the store and on the host pipeline;
+        # CTAugment, a 2D transform, has no 3D data path on either
+        method = _NarrowMT(cfg)
+        method.transform = "cta"
+        engine = TEngine(cfg, method=method, device="cpu")
+        with pytest.raises(NotImplementedError, match="no 3D data path"):
+            fit(cfg, engine=engine, max_steps=1)
         assert not os.path.exists(cfg.snapshot_path())
         return
     method = _NarrowMT(cfg)
