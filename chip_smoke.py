@@ -152,12 +152,41 @@ the run with a non-zero exit:
    the host's time per batch, 3 steps from pinned batches). Each part's
    seconds are printed. ``--3d-only`` builds the CE+Dice source alone and
    runs only this phase (its steps under "error");
-9. one JSON line of the kernels (kernel #1's with its launches in each
-   method's run of phases 5, 5b and 8 and in the contrastive_consistency
-   and UAMT-3D ``fit``s; phase 5b's contrastive_cross as
-   ``contrastive_cross_vit``, config 3's methods as ``supervised_swin``
-   and ``uamt_swin``, phase 8's with ``_3d``; and under ``at_5d`` its
-   error and times at config 5's shape), then the result line
+9. the held-out test path and the 3D CNN zoo: the 2D test CLI
+   (``eval/test_2d.py``, ``--full_metrics``) with phase 7's
+   ``unet_best_model.ckpt`` on 40 ACDC-shaped volumes of 10 slices at
+   mixed in-plane sizes (232 x 256, 256 x 216, 154 x 224, 428 x 512),
+   exports to a temporary directory, one case's three files read back
+   with ``load_nifti`` (the prediction equal to the predictor's), the
+   seconds a volume in zoom in, predict, zoom out, metrics and export;
+   the 3D test CLI (``eval/test_3d.py``) with the UAMT-3D fit's weights
+   on 10 volumes of 140 x 180 x 180 (patch 96^3, stride 64, full metrics,
+   export): ``metrics.txt`` parsed, one case's files read back,
+   volumes/s and the host's share in metrics and export; kernel #1 at
+   nnUNet's (2, 2, 96, 128, 128) float32 with int32 labels against
+   float64, bit-equal on repeat, and its time there; then mean_teacher at
+   config 5's recipe (batch 4 = 2 + 2, 2 classes, float32) on VNet
+   (9,448,866 parameters), VoxResNet (1,992,578) and AttentionUNet3D
+   (6,469,328) at 96^3 from a store of the 250 volumes, and nnUNet
+   (30,444,656) at 96 x 128 x 128 from the host pipeline (the store's
+   rot90 follows the crop and needs the patch's first two sides equal;
+   ``fit`` takes the host path for it too): 5 + 5 checked steps
+   (kernel #1 once each way a step; under "error" where phase 5 ran so),
+   10 timed, a one-step profile, its eval softmax summing to 1, the
+   sliding window over one volume, and its float32 eval forward on the
+   card against the CPU on one window; then 2D nnUNet (7,388,496
+   parameters) with mean_teacher at config 2 (batch 24 = 12 + 12 at
+   256^2, 4 classes, float32), 5 + 5 checked and 10 timed. Each part's
+   seconds are printed. ``--test-zoo-only`` builds the CE+Dice source
+   alone and runs this phase on the weights of two short fits;
+10. one JSON line of the kernels (kernel #1's with its launches in each
+   method's run of phases 5, 5b, 8 and 9 and in the
+   contrastive_consistency and UAMT-3D ``fit``s; phase 5b's
+   contrastive_cross as ``contrastive_cross_vit``, config 3's methods as
+   ``supervised_swin`` and ``uamt_swin``, phase 8's with ``_3d``, phase
+   9's as ``mean_teacher_vnet_3d`` ... ``mean_teacher_nnunet_2d``; under
+   ``at_5d`` its error and times at config 5's shape, under
+   ``at_nnunet`` at nnUNet's), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -214,7 +243,7 @@ METHOD_STEPS = 5               # from step 0, and again from step 1000
 MODEL_PARAMS = {"unet": 1_813_764, "unet_cct": 3_713_664,
                 "unet_urpc": 1_821_840, "discriminator": 2_762_754,
                 "swin_unet": 27_168_420, "projector": 1_512,
-                "classifier": 7_272}
+                "classifier": 7_272, "nnUNet": 7_388_496}
 # the metric that carries each method's unsupervised term
 CONSISTENCY_KEY = {"fixmatch": "unsup_loss",
                    "adversarial_consistency": "ict_loss",
@@ -283,7 +312,9 @@ BRATS_TRAIN, BRATS_LABELED, BRATS_VOLUME = 250, 25, (140, 180, 180)
 METHOD_LAUNCHES_3D = {"supervised": 1, "mean_teacher": 1, "cps": 2,
                       "ict": 1, "adversarial": 1,
                       "exam_student_teacher": 1}
-MODEL_PARAMS_3D = {"unet_3D": 5_884_050, "discriminator": 11_024_386}
+MODEL_PARAMS_3D = {"unet_3D": 5_884_050, "discriminator": 11_024_386,
+                   "vnet": 9_448_866, "voxresnet": 1_992_578,
+                   "attention_unet": 6_469_328, "nnUNet": 30_444_656}
 UAMT_3D_CHECKED, UAMT_3D_TIMED = 10, 30
 METHOD_3D_CHECKED, METHOD_3D_TIMED = 5, 10
 # the sliding window: 5 volumes of bench.py:237-288's shape, 18 windows
@@ -295,6 +326,25 @@ FIT_3D_STEPS, FIT_3D_RESUME = 100, 150
 VAL_3D_SHAPES = ((140, 180, 180), (120, 160, 150), (90, 130, 140),
                  (100, 100, 100))
 HOST_3D_VOLUMES, HOST_3D_TIMED, HOST_3D_STEPS = 8, 10, 3
+
+# phase 9: the held-out test CLIs and the 3D CNN zoo. test_2d on ACDC's
+# test count of volumes (SURVEY.md:69), ~10 slices each at ACDC's mixed
+# in-plane sizes; test_3d on 10 volumes of bench.py:259's shape
+# (BraTS2019's test set has 60: cut for time)
+TEST_2D_VOLUMES, TEST_2D_SLICES = 40, 10
+TEST_2D_SHAPES = ((232, 256), (256, 216), (154, 224), (428, 512))
+TEST_3D_VOLUMES = 10
+# the zoo at config 5's recipe (mean_teacher, batch 4 = 2 + 2, 2 classes,
+# float32): each net's patch (nnUNet's pools need depth % 4 and the plane
+# % 64) and an eval window for the card-against-CPU check
+ZOO_3D = {"vnet": ((96, 96, 96), (64, 64, 64)),
+          "voxresnet": ((96, 96, 96), (64, 64, 64)),
+          "attention_unet": ((96, 96, 96), (64, 64, 64)),
+          "nnUNet": ((96, 128, 128), (32, 64, 64))}
+ZOO_CHECKED, ZOO_TIMED = 5, 10
+NNUNET_SHAPE = (LABELED_BS_3D, CLASSES_3D, 96, 128, 128)
+# short fits for the test CLIs' checkpoints when phase 9 runs alone
+TEST_FIT_2D, TEST_FIT_3D = 40, 20
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -582,9 +632,10 @@ def trace_launches(calls, flush, reps=20):
     return out
 
 
-def kernel_calls(device, shape=MAIN_SHAPE):
-    """Kernel #1 at ``shape`` (default the main path's) in the main path's
-    dtype (bf16 logits, int32 labels): its forward and backward launches,
+def kernel_calls(device, shape=MAIN_SHAPE, dtype="bfloat16"):
+    """Kernel #1 at ``shape`` (default the main path's) in ``dtype``
+    (default the main path's bf16 logits; int32 labels): its forward and
+    backward launches,
     the empty kernel, and a 1 GiB flush buffer, larger than L2 (50 MB),
     whose ~0.3 ms write outlasts the host's enqueueing of any call timed
     here."""
@@ -593,7 +644,7 @@ def kernel_calls(device, shape=MAIN_SHAPE):
 
     gen = torch.Generator(device=device).manual_seed(1)
     logits = torch.randn(shape, generator=gen, device=device).to(
-        torch.bfloat16)
+        getattr(torch, dtype))
     labels = torch.randint(0, shape[1], shape[:1] + shape[2:],
                            generator=gen, device=device, dtype=torch.int32)
     flush = torch.empty(2 ** 28, dtype=torch.int32, device=device)
@@ -637,14 +688,15 @@ def trace_kernels(device):
     return trace
 
 
-def time_kernels(device, mem_bw, f32_rate, shape=MAIN_SHAPE):
-    """Phase 2 timings of kernel #1 (:func:`kernel_calls`) at ``shape``:
-    kernel, plain version, bound; the event timer's floor (an empty kernel
-    through ctypes), and the host's enqueue time per call."""
+def time_kernels(device, mem_bw, f32_rate, shape=MAIN_SHAPE,
+                 dtype="bfloat16"):
+    """Phase 2 timings of kernel #1 (:func:`kernel_calls`) at ``shape`` and
+    ``dtype``: kernel, plain version, bound; the event timer's floor (an
+    empty kernel through ctypes), and the host's enqueue time per call."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
-    k = kernel_calls(device, shape)
+    k = kernel_calls(device, shape, dtype)
     logits, labels, flush = k["logits"], k["labels"], k["flush"]
     n = labels.numel()
     c = shape[1]
@@ -690,7 +742,8 @@ def time_kernels(device, mem_bw, f32_rate, shape=MAIN_SHAPE):
             "bytes": io[name], "host_us": host_us(kern),
             "l2": l2_states(kern, flush)}
         r = rows[name]
-        print(f"kernel {name} at {tuple(shape)}: kernel_ms {r['ms']:.6f} "
+        print(f"kernel {name} at {tuple(shape)} {dtype}: kernel_ms "
+              f"{r['ms']:.6f} "
               f"plain_ms "
               f"{r['plain_ms']:.6f} bound_us {r['bound_ms'] * 1e3:.3f} "
               f"({r['bound_by']}, {r['bytes']} bytes) library_ms none; "
@@ -929,7 +982,7 @@ def run_other_methods(device, card, store):
 
 def drive_method(engine, state, stream, per_step, strict, card, batch,
                  checked=METHOD_STEPS, timed=MEASURE_STEPS, profiled=3,
-                 top=5):
+                 top=5, batches=None):
     """One method at full width: its models' parameter counts; ``checked``
     steps from step 0 and as many from step 1000 (under sync debug mode
     "error" if ``strict``), kernel #1 launched ``per_step`` times a step,
@@ -938,8 +991,10 @@ def drive_method(engine, state, stream, per_step, strict, card, batch,
     through their ``_pseudo_*`` terms and recomputed here, see
     :func:`check_pseudo`); the teachers, or else every model, and the
     discriminators moved; then samples/s and peak memory over ``timed``
-    steps and a profile of ``profiled`` steps (its ``top`` kernels).
-    Returns the method's numbers."""
+    steps and a profile of ``profiled`` steps (its ``top`` kernels). The
+    steps take index batches of ``stream`` from the engine's store, or
+    with ``batches`` the host pipeline's pinned batches. Returns the
+    method's numbers."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
@@ -971,6 +1026,18 @@ def drive_method(engine, state, stream, per_step, strict, card, batch,
                    for n, m in frozen.items()}
     pseudo = spy_pseudo(engine.method) if method in PSEUDO_PAIRS else None
 
+    def steps(n):
+        """``n`` steps; the last one's metrics."""
+        nonlocal state
+        if batches is None:
+            state, m = engine.train_steps(state,
+                                          [next(stream) for _ in range(n)])
+            return m
+        for _ in range(n):
+            state, m = engine.train_step(state,
+                                         engine.host_batch(next(batches)))
+        return m
+
     fcd.reset_launches()
     vals = []
     for start in (0, 1000):
@@ -980,7 +1047,7 @@ def drive_method(engine, state, stream, per_step, strict, card, batch,
             if strict:
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                state, metrics = engine.train_steps(state, [next(stream)])
+                metrics = steps(1)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             for k in before:
@@ -1030,8 +1097,7 @@ def drive_method(engine, state, stream, per_step, strict, card, batch,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed // 10):
-        state, metrics = engine.train_steps(
-            state, [next(stream) for _ in range(10)])
+        metrics = steps(10)
     float(metrics["loss"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -1060,9 +1126,9 @@ def drive_method(engine, state, stream, per_step, strict, card, batch,
           f"{r['slices_per_s']:.2f} {unit}/s ({r['ms_per_step']:.2f} "
           f"ms/step over {timed} steps of {batch}), peak memory "
           f"{r['peak_gib']:.3f} GiB, on {card}")
-    r["busy_ms_per_step"] = profile_steps(engine, state, stream,
-                                          dt / timed, steps=profiled,
-                                          top=top)
+    r["busy_ms_per_step"] = profile_steps(
+        engine, state, stream, dt / timed, steps=profiled, top=top,
+        step_fn=None if batches is None else lambda: steps(1))
     return r
 
 
@@ -1433,8 +1499,9 @@ def run_fit(device, card, strict):
     the cps, fixmatch and cross_teaching fits, the host data path
     (:func:`run_host_fit`, its steps under sync debug mode "error" if
     ``strict``), the contrastive_cross fit and the contrastive_consistency
-    fit on the host CTA path (:func:`run_ccons_fit`), whose kernel #1
-    launches it returns."""
+    fit on the host CTA path (:func:`run_ccons_fit`). Returns the latter's
+    kernel #1 launches and the mean-teacher fit's
+    ``unet_best_model.ckpt`` (phase 9's 2D test CLI reads it)."""
     import torch
     from cvssl_tpu_torch.ops import edt
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
@@ -1523,7 +1590,8 @@ def run_fit(device, card, strict):
     run_vit_fit(card, train_ds, vit_val_ds)
     run_host_fit(card, train_ds, val_ds, store_sps, strict)
     run_cc_fit(card, train_ds, vit_val_ds)
-    return run_ccons_fit(card, train_ds, vit_val_ds, strict)
+    return (run_ccons_fit(card, train_ds, vit_val_ds, strict),
+            os.path.join(snap, "unet_best_model.ckpt"))
 
 
 def run_cps_fit(card, train_ds, val_ds):
@@ -2257,7 +2325,8 @@ def run_fit_3d(device, card):
     the 250 volumes (under the 8 GiB rule): 100 iterations with one
     validation (4 val volumes of mixed shapes) and one checkpoint, then a
     resume to 150; the files, the val table, kernel #1's launches (one
-    each way an iteration; their sum over both calls is returned),
+    each way an iteration; their sum over both calls is returned, with
+    the weights phase 9's 3D test CLI loads, :func:`test_weights`),
     volumes/s including validation, the val pass's seconds and the host's
     HD95 share of it."""
     import torch
@@ -2342,7 +2411,23 @@ def run_fit_3d(device, card):
           f"{len(val)} volumes {[v['image'].shape for v in val]}; val pass "
           f"{val_s:.3f} s, of which HD95 on the host {sum(hd95_s):.3f} s "
           f"(share {sum(hd95_s) / val_s:.3f}), on {card}")
-    return total
+    return total, test_weights(snap, "unet_3D", res["state"])
+
+
+def test_weights(snap, model, state):
+    """The weights phase 9's test CLI loads: the fit's
+    ``{model}_best_model.ckpt``, or, where no validation scored above 0
+    Dice (no best model written), its final weights written beside it."""
+    import torch
+    best = os.path.join(snap, f"{model}_best_model.ckpt")
+    if os.path.exists(best):
+        return best
+    final = os.path.join(snap, f"{model}_final_weights.ckpt")
+    torch.save({k: v.cpu() for k, v in
+                state.models["model"].state_dict().items()}, final)
+    print(f"{snap}: no {model}_best_model.ckpt (best Dice 0); the test CLI "
+          f"loads the final weights")
+    return final
 
 
 class HostVolumes:
@@ -2436,7 +2521,8 @@ def run_3d(device, card, strict, mem_bw, f32_rate):
     the card; then :func:`run_3d_methods`, :func:`check_deep_sup_eval`,
     :func:`run_sliding_window`, :func:`run_fit_3d` and
     :func:`run_host_3d`, each part's seconds printed. Returns kernel #1's
-    errors and times at 5D and the launches of each 3D run."""
+    errors and times at 5D, the launches of each 3D run and the UAMT-3D
+    fit's weights for phase 9."""
     import torch
     from cvssl_tpu_torch.data.device_store import DeviceVolumeStore
 
@@ -2470,7 +2556,8 @@ def run_3d(device, card, strict, mem_bw, f32_rate):
     print(f"phase 8 part deep-sup eval + sliding window: "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    methods["uamt_3d_fit"] = {"launches": run_fit_3d(device, card)}
+    launches, weights = run_fit_3d(device, card)
+    methods["uamt_3d_fit"] = {"launches": launches}
     torch.cuda.empty_cache()
     print(f"phase 8 part fit: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2478,7 +2565,353 @@ def run_3d(device, card, strict, mem_bw, f32_rate):
     print(f"phase 8 part host path: {time.perf_counter() - t0:.1f} s")
     print(f"phase 8 (3D): {time.perf_counter() - t_phase:.1f} s")
     return {"err": err, "timing": timing, "methods": methods,
-            "sw_volumes_per_s": rates}
+            "sw_volumes_per_s": rates, "weights": weights}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the held-out test CLIs and the 3D CNN zoo
+# ---------------------------------------------------------------------------
+
+def test_volumes_2d(seed=40_000):
+    """ACDC's test count of blob volumes, ``TEST_2D_SLICES`` slices each,
+    at ACDC's mixed in-plane sizes, by case name."""
+    from cvssl_tpu_torch.data.synthetic import blob_image
+    rng = np.random.default_rng(seed)
+    vols = {}
+    for i in range(TEST_2D_VOLUMES):
+        shape = TEST_2D_SHAPES[i % len(TEST_2D_SHAPES)]
+        pairs = [blob_image(rng, shape, CLASSES)
+                 for _ in range(TEST_2D_SLICES)]
+        vols[f"patient{i:03d}"] = (np.stack([p[0] for p in pairs]),
+                                   np.stack([p[1] for p in pairs]))
+    return vols
+
+
+def placed_weights(flags, weights):
+    """``weights`` copied to the test CLI's ``{snapshot}/{model}_best_model
+    .ckpt``, where it loads them."""
+    import shutil
+
+    from cvssl_tpu_torch.eval.test_3d import snapshot_dir
+    os.makedirs(snapshot_dir(flags), exist_ok=True)
+    shutil.copy(weights, os.path.join(snapshot_dir(flags),
+                                      f"{flags.model}_best_model.ckpt"))
+
+
+def run_test_2d(card, weights):
+    """Phase 9a: the 2D test CLI (``eval/test_2d.py``'s ``inference`` with
+    ``--full_metrics``) on 40 ACDC-shaped volumes of mixed sizes with the
+    mean-teacher fit's UNet: per-class (dice, hd95, asd); one case's three
+    exports read back with the port's ``load_nifti`` (the prediction equal
+    to the predictor's output, image and label to the inputs); the seconds
+    per volume in each phase (zoom in, predict, zoom out, metrics,
+    export)."""
+    from cvssl_tpu_torch.eval import test_2d
+    from cvssl_tpu_torch.eval.test_3d import snapshot_dir
+    from cvssl_tpu_torch.utils.nifti import load_nifti
+
+    t0 = time.perf_counter()
+    vols = test_volumes_2d()
+    made = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_test2d_")
+    flags = test_2d.build_parser().parse_args([
+        "--root_path", tmp, "--exp", "ACDC/smoke_test", "--model", "unet",
+        "--num_classes", str(CLASSES), "--labeled_num", "7",
+        "--snapshot_root", tmp, "--full_metrics"])
+    placed_weights(flags, weights)
+    times = {}
+    t0 = time.perf_counter()
+    avg = test_2d.inference(flags, volumes=vols, times=times)
+    wall = time.perf_counter() - t0
+    if avg.shape != (CLASSES - 1, 3) or not np.isfinite(avg).all() or not (
+            (avg[:, 0] >= 0) & (avg[:, 0] <= 1)).all():
+        raise SystemExit(f"test_2d: per-class results {avg}")
+    case = "patient003"                     # the 428 x 512 volume
+    image, label = vols[case]
+    out = snapshot_dir(flags) + "_predictions"
+    files = {t: load_nifti(os.path.join(out, f"{case}_{t}.nii.gz"))
+             for t in ("pred", "img", "gt")}
+    _, pred = test_2d.test_single_volume(
+        image, label, test_2d.load_predictor(flags), flags)
+    for tag, want in (("pred", pred), ("img", image), ("gt", label)):
+        got, spacing = files[tag]
+        if not (got.dtype == np.float32 and np.array_equal(
+                got, want.astype(np.float32))
+                and np.allclose(spacing, (1.0, 1.0, 10.0))):
+            raise SystemExit(f"test_2d export {case}_{tag}: not the "
+                             f"{tag} it scored")
+    if len(os.listdir(out)) != 3 * TEST_2D_VOLUMES:
+        raise SystemExit(f"test_2d: {len(os.listdir(out))} exports")
+    per = {k: times[k] / TEST_2D_VOLUMES for k in test_2d.PHASES}
+    zoom = per["zoom_in"] + per["zoom_out"]
+    print(f"test_2d: {TEST_2D_VOLUMES} volumes of {TEST_2D_SLICES} slices "
+          f"at {TEST_2D_SHAPES} (made in {made:.1f} s), --full_metrics, "
+          f"per class (dice, hd95, asd) {avg.round(4).tolist()}; "
+          f"{wall:.2f} s, {wall / TEST_2D_VOLUMES * 1e3:.1f} ms a volume: "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in per.items())
+          + f" ms; the host zoom's share {zoom * TEST_2D_VOLUMES / wall:.3f}"
+          f"; {case}'s exports read back equal, on {card}")
+    return {"s_per_volume": wall / TEST_2D_VOLUMES, **per}
+
+
+def run_test_3d(device, card, weights):
+    """Phase 9b: the 3D test CLI (``eval/test_3d.py``'s ``inference``) on
+    10 volumes of 140 x 180 x 180 with the UAMT-3D fit's UNet3D, patch
+    96^3, stride 64, full metrics and export: ``metrics.txt`` parsed (10
+    rows and their mean), one case's exports read back (the prediction
+    equal to the sliding window's map, image and label to the inputs);
+    volumes/s and the host's share of the time in metrics and export."""
+    from cvssl_tpu_torch.eval import test_3d, val3d
+    from cvssl_tpu_torch.utils.nifti import load_nifti
+
+    src = brats_volumes(device, TEST_3D_VOLUMES, seed=900)
+    vols = []
+    for i in range(TEST_3D_VOLUMES):
+        s = src[i]
+        vols.append({"image": s["image"].cpu().numpy(),
+                     "label": s["label"].cpu().numpy(),
+                     "case": f"BraTS19_{i:03d}"})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_test3d_")
+    flags = test_3d.build_parser().parse_args([
+        "--root_path", tmp, "--exp", "BraTS2019/smoke_test", "--model",
+        "unet_3D", "--labeled_num", str(BRATS_LABELED), "--snapshot_root",
+        tmp])
+    placed_weights(flags, weights)
+    times = {}
+    t0 = time.perf_counter()
+    mean = test_3d.inference(flags, dataset=vols, times=times)
+    wall = time.perf_counter() - t0
+    out = test_3d.snapshot_dir(flags) + "_predictions"
+    with open(os.path.join(out, "metrics.txt")) as f:
+        rows = [ln.strip().split(",") for ln in f]
+    table = np.asarray([r[1:] for r in rows], float)
+    if ([r[0] for r in rows] != [str(i) for i in range(TEST_3D_VOLUMES)]
+            + ["mean"] or table.shape != (TEST_3D_VOLUMES + 1, 4)
+            or not np.isfinite(table).all()
+            or not np.allclose(table[-1], mean.ravel())
+            or not np.allclose(table[:-1].mean(0), table[-1])):
+        raise SystemExit(f"test_3d metrics.txt: {rows}")
+    case = vols[3]
+    ev = val3d.SlidingWindowEvaluator(test_3d.load_predictor(flags),
+                                      tuple(flags.patch_size), CLASSES_3D,
+                                      flags.stride_xy, flags.stride_z,
+                                      device=device)
+    want = {"pred": ev.predict_volume(case["image"]).astype(np.uint8),
+            "img": case["image"], "lab": case["label"]}
+    for tag, arr in want.items():
+        got, spacing = load_nifti(os.path.join(
+            out, f"{case['case']}_{tag}.nii.gz"))
+        if not (got.dtype == arr.dtype and np.array_equal(got, arr)
+                and np.allclose(spacing, (1.0, 1.0, 1.0))):
+            raise SystemExit(f"test_3d export {case['case']}_{tag}: not "
+                             f"the {tag} it scored")
+    host = times["metrics"] + times["export"]
+    print(f"test_3d: {TEST_3D_VOLUMES} volumes of {BRATS_VOLUME}, patch "
+          f"{tuple(flags.patch_size)} stride {flags.stride_xy}, mean (dice, "
+          f"ravd, hd95, asd) {mean.round(4).tolist()}; {wall:.2f} s, "
+          f"{TEST_3D_VOLUMES / wall:.3f} volumes/s; the host's share "
+          f"{host / wall:.3f} (metrics {times['metrics']:.2f} s, export "
+          f"{times['export']:.2f} s), waiting on the card "
+          f"{times['predict']:.2f} s; metrics.txt and "
+          f"{case['case']}'s exports read back equal, on {card}")
+    return {"volumes_per_s": TEST_3D_VOLUMES / wall, "wall_s": wall,
+            **times}
+
+
+def check_zoo_eval(engine, state, net, window, device):
+    """Phase 9c's eval checks of a zoo net: the softmax of a window batch
+    sums to 1 over the classes; the sliding window (stride 64) over one
+    140 x 180 x 180 volume gives a map of its shape and classes; the
+    float32 eval forward on the card against the same weights on the CPU
+    on one ``window``. Returns (windows, seconds of the volume)."""
+    import copy
+
+    import torch
+    from cvssl_tpu_torch.eval import val3d
+
+    patch = tuple(engine.cfg.patch_size)
+    vol = brats_volumes(device, 1, seed=1234)[0]["image"]
+    x = vol[None, None, :patch[0], :patch[1], :patch[2]].contiguous()
+    probs = engine.eval_probs("model", state.models["model"], x)
+    err_sum = float((probs.sum(dim=1) - 1).abs().max())
+    if probs.dtype != torch.float32 or err_sum > 1e-5:
+        raise SystemExit(f"{net}: eval softmax {probs.dtype}, sums off "
+                         f"by {err_sum}")
+    ev = val3d.SlidingWindowEvaluator(engine.predict_probs_fn("model",
+                                                              state),
+                                      patch, CLASSES_3D, 64, 64,
+                                      device=device)
+    n_win = len(ev.plan(BRATS_VOLUME)[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    label = ev.predict_volume(vol)
+    vol_s = time.perf_counter() - t0
+    if label.shape != BRATS_VOLUME or not set(np.unique(label)) <= {0, 1}:
+        raise SystemExit(f"{net}: sliding window map {label.shape} "
+                         f"{np.unique(label)}")
+    model = state.models["model"]
+    ref = copy.deepcopy(model).cpu().eval()
+    small = vol[None, None, :window[0], :window[1], :window[2]].contiguous()
+    model.eval()
+    try:
+        with torch.no_grad():
+            got = model(small).cpu()
+            want = ref(small.cpu())
+    finally:
+        model.train()
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"{net} eval: softmax of {tuple(probs.shape)} sums to 1 within "
+          f"{err_sum:.1e}; sliding window {n_win} windows, {vol_s:.3f} s a "
+          f"volume; f32 card vs CPU on {window} max rel err {err:.2e}")
+    if got.dtype != torch.float32 or err > 1e-4:
+        raise SystemExit(f"{net}: f32 eval forward on the card disagrees "
+                         "with the CPU")
+    return n_win, vol_s
+
+
+def zoo_host_pipeline(patch):
+    """The host pipeline of a patch the store does not take: 8 volumes of
+    140 x 180 x 180 in host memory through the reference's RandomRotFlip3D
+    + RandomCrop(patch), pinned batches of 4 = 2 + 2."""
+    from cvssl_tpu_torch.data import transforms as T
+    from cvssl_tpu_torch.data.pipeline import DataPipeline
+    from cvssl_tpu_torch.data.synthetic import blob_volumes as volumes_3d
+
+    base = volumes_3d([BRATS_VOLUME] * HOST_3D_VOLUMES, seed=31_000,
+                      num_classes=CLASSES_3D)
+    sampler = two_stream_3d(13, LABELED_BS_3D, HOST_3D_VOLUMES)
+    transform = T.Compose([T.RandomRotFlip3D(sampler.rng),
+                           T.RandomCrop(patch, rng=sampler.rng)])
+    return DataPipeline(HostVolumes(base, transform), sampler,
+                        pin_memory=True)
+
+
+def run_zoo(device, card, strict, mem_bw, f32_rate):
+    """Phase 9c and 9d: kernel #1 at nnUNet's (2, 2, 96, 128, 128) float32
+    with int32 labels against float64, bit-equal on repeat, and its time
+    there; then each zoo net at config 5's recipe (mean_teacher, batch 4 =
+    2 + 2, 2 classes, float32) from the store of the 250 volumes at 96^3
+    (nnUNet's 96 x 128 x 128 from the host pipeline, as ``fit`` takes it:
+    :func:`zoo_host_pipeline`), through :func:`drive_method` (5 + 5
+    checked steps, kernel #1 once each way a step, 10 timed, a one-step
+    profile) and :func:`check_zoo_eval`; then 2D nnUNet at config 2 (batch 24 = 12 + 12
+    at 256^2, 4 classes, float32) from a store of ACDC-shaped slices.
+    Returns kernel #1's error and times at nnUNet's shape and the
+    launches of each run."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import (DeviceSliceStore,
+                                                   DeviceVolumeStore)
+    from cvssl_tpu_torch.train.engine import Engine
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(9)
+    err = {"ce_dice_fwd": 0.0, "ce_dice_bwd": 0.0}
+    check_case(device, gen, NNUNET_SHAPE, torch.float32, torch.int32, False,
+               True, err)
+    timing = time_kernels(device, mem_bw, f32_rate, NNUNET_SHAPE, "float32")
+    print(f"phase 9 part kernel #1 at nnUNet's shape: "
+          f"{time.perf_counter() - t0:.1f} s")
+    results, store = {}, None
+    for net, (patch, window) in ZOO_3D.items():
+        t0 = time.perf_counter()
+        on_store = DeviceVolumeStore.takes_patch(patch)
+        engine = Engine(config_3d("mean_teacher", model=net,
+                                  patch_size=patch, device_data=on_store))
+        if engine.model_dtypes != {"model": torch.float32}:
+            raise SystemExit(f"{net}: compute dtypes {engine.model_dtypes}")
+        state = engine.init_state()
+        if on_store:
+            if store is None:
+                store = DeviceVolumeStore(brats_volumes(device), patch)
+            engine.attach_store(store)
+            r = drive_method(engine, state, two_stream_3d(11).epochs(), 1,
+                             strict, card, BATCH_3D, checked=ZOO_CHECKED,
+                             timed=ZOO_TIMED, profiled=1)
+        else:
+            # the store's rot90 follows the crop and needs the patch's
+            # first two sides equal: fit's host pipeline, as fit takes it
+            del store
+            store = None
+            torch.cuda.empty_cache()
+            stream = zoo_host_pipeline(patch).stream()
+            try:
+                r = drive_method(engine, state, None, 1, strict, card,
+                                 BATCH_3D, checked=ZOO_CHECKED,
+                                 timed=ZOO_TIMED, profiled=1,
+                                 batches=stream)
+            finally:
+                stream.close()
+        r["windows"], r["volume_s"] = check_zoo_eval(engine, state, net,
+                                                     window, device)
+        results[f"mean_teacher_{net.lower()}_3d"] = r
+        print(f"{net} 3D: phase part {time.perf_counter() - t0:.1f} s")
+        del engine, state
+        torch.cuda.empty_cache()
+    del store
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = Engine(method_config("mean_teacher", model="nnUNet"))
+    if engine.model_dtypes != {"model": torch.float32}:
+        raise SystemExit(f"nnUNet 2D: compute dtypes {engine.model_dtypes}")
+    engine.attach_store(DeviceSliceStore(SyntheticACDC(),
+                                         engine.cfg.patch_size))
+    state = engine.init_state()
+    results["mean_teacher_nnunet_2d"] = drive_method(
+        engine, state, two_stream(12).epochs(), 1, strict, card, BATCH,
+        checked=ZOO_CHECKED, timed=ZOO_TIMED, profiled=1)
+    print(f"nnUNet 2D: phase part {time.perf_counter() - t0:.1f} s")
+    del engine, state
+    torch.cuda.empty_cache()
+    return {"err": err, "timing": timing, "methods": results}
+
+
+def short_fit_weights(device, card):
+    """The test CLIs' checkpoints when phase 9 runs alone: a mean-teacher
+    UNet ``fit`` of 40 iterations at config 2 and a UAMT-3D ``fit`` of 20
+    at config 5, each with one validation (:func:`test_weights`)."""
+    import torch
+    from cvssl_tpu_torch.data.synthetic import blob_volumes as volumes_3d
+    from cvssl_tpu_torch.train.engine import Engine, fit
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_testfits_")
+    cfg = method_config("mean_teacher", val_every=TEST_FIT_2D,
+                        ckpt_every=TEST_FIT_2D, snapshot_root=tmp,
+                        exp="ACDC/smoke9")
+    res = fit(cfg, engine=Engine(cfg), max_steps=TEST_FIT_2D,
+              data=(BlobSlices(), two_stream(cfg.seed), blob_volumes()))
+    w2d = test_weights(cfg.snapshot_path(), "unet", res["state"])
+    del res
+    cfg = config_3d("uamt", val_every=TEST_FIT_3D, ckpt_every=TEST_FIT_3D,
+                    snapshot_root=tmp, exp="BraTS/smoke9")
+    res = fit(cfg, engine=Engine(cfg), max_steps=TEST_FIT_3D,
+              data=(brats_volumes(device), two_stream_3d(cfg.seed),
+                    volumes_3d(VAL_3D_SHAPES[:1], seed=20_000,
+                               num_classes=CLASSES_3D)))
+    w3d = test_weights(cfg.snapshot_path(), "unet_3D", res["state"])
+    del res
+    torch.cuda.empty_cache()
+    print(f"phase 9 short fits ({TEST_FIT_2D} 2D, {TEST_FIT_3D} 3D "
+          f"iterations): {time.perf_counter() - t0:.1f} s, on {card}")
+    return w2d, w3d
+
+
+def run_phase9(device, card, strict, mem_bw, f32_rate, w2d, w3d):
+    """Phase 9: :func:`run_test_2d`, :func:`run_test_3d` and
+    :func:`run_zoo`, each part's seconds printed."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    test2d = run_test_2d(card, w2d)
+    print(f"phase 9 part test_2d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    test3d = run_test_3d(device, card, w3d)
+    print(f"phase 9 part test_3d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zoo = run_zoo(device, card, strict, mem_bw, f32_rate)
+    print(f"phase 9 part zoo: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 9 (test CLIs and zoo): {time.perf_counter() - t_phase:.1f}"
+          " s")
+    return {**zoo, "test_2d": test2d, "test_3d": test3d}
 
 
 def main(argv=None) -> int:
@@ -2494,6 +2927,12 @@ def main(argv=None) -> int:
         help="build only csrc/fused_ce_dice.cu and run phase 8 (the 3D "
         "path, its checked steps under sync debug mode \"error\"), then "
         "stop without the result line")
+    parser.add_argument(
+        "--test-zoo-only", dest="only_9", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 9 (the test "
+        "CLIs on the weights of two short fits, then the zoo, its checked "
+        "steps under sync debug mode \"error\"), then stop without the "
+        "result line")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2514,7 +2953,8 @@ def main(argv=None) -> int:
             built[name] = time.perf_counter() - t0
         except Exception as e:  # re-raised in the main thread below
             built[name] = e
-    sources = [] if args.only_3d else [("conv3x3_p8", cv._library)]
+    sources = ([] if args.only_3d or args.only_9
+               else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
     builders = {name: threading.Thread(target=build, args=(name, load))
@@ -2559,6 +2999,12 @@ def main(argv=None) -> int:
         print("chip_smoke --3d-only: phase 8 passed; no result line (the "
               "other phases did not run)")
         return 0
+    if args.only_9:
+        run_phase9(device, smi, True, mem_bw, f32_rate,
+                   *short_fit_weights(device, smi))
+        print("chip_smoke --test-zoo-only: phase 9 passed; no result line "
+              "(the other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -2576,10 +3022,13 @@ def main(argv=None) -> int:
     conv_err = check_conv(device)
     conv_timing = time_conv(device, mem_bw, tf32_rate)
     conv_launches = drive_conv(device)
-    methods["contrastive_consistency"] = {
-        "launches": run_fit(device, smi, strict)}
+    ccons_launches, w2d = run_fit(device, smi, strict)
+    methods["contrastive_consistency"] = {"launches": ccons_launches}
     r3d = run_3d(device, smi, strict, mem_bw, f32_rate)
     methods.update(r3d["methods"])
+    r9 = run_phase9(device, smi, strict, mem_bw, f32_rate, w2d,
+                    r3d["weights"])
+    methods.update(r9["methods"])
 
     source = "cvssl_tpu_torch/csrc/fused_ce_dice.cu"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",
@@ -2595,7 +3044,13 @@ def main(argv=None) -> int:
                 "at_5d": {"shape": list(SHAPE_3D),
                           "max_abs_err": r3d["err"][k],
                           **{f: r3d["timing"][k][f] for f in
-                             ("ms", "plain_ms", "bound_ms", "bound_by")}}}
+                             ("ms", "plain_ms", "bound_ms", "bound_by")}},
+                "at_nnunet": {"shape": list(NNUNET_SHAPE),
+                              "dtype": "float32",
+                              "max_abs_err": r9["err"][k],
+                              **{f: r9["timing"][k][f] for f in
+                                 ("ms", "plain_ms", "bound_ms",
+                                  "bound_by")}}}
                for k in fcd.LAUNCHES]
     replaces = {"conv3x3_p8": "cvssl_tpu/ops/pallas_conv.py:215",
                 "conv3x3_p8_dma": "cvssl_tpu/ops/pallas_conv.py:112",

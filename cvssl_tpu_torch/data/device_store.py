@@ -345,6 +345,13 @@ class DeviceVolumeStore:
         return F.pad(x, flat)
 
     @staticmethod
+    def takes_patch(patch_size) -> bool:
+        """Whether the store can serve ``patch_size``: its rot90 comes
+        after the crop (JAX's order), so the patch's first two sides must
+        be equal (JAX's store fails to trace another patch)."""
+        return int(patch_size[0]) == int(patch_size[1])
+
+    @staticmethod
     def estimated_bytes(dataset, patch_size, bytes_per_voxel: int = 3):
         """The store's size from the first volume's shape (at least the
         patch on each axis), 2 bytes of image and 1 of label a voxel. JAX:

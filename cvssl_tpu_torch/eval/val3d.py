@@ -262,16 +262,29 @@ def test_all_case(predict_fn, dataset, num_classes: int = 2,
 
 def test_all_case_full_metrics(predict_fn, dataset, num_classes: int = 2,
                                patch_size=(96, 96, 96), stride_xy: int = 64,
-                               stride_z: int = 64, device="cuda"):
+                               stride_z: int = 64, export_dir=None,
+                               device="cuda", times=None):
     """Per-case (dice, ravd, hd95, asd) of each foreground class (zeros
     where the prediction or the label lacks it) and their mean over the
     cases: (rows (cases, classes - 1, 4), mean) (reference
-    ``test_3D_util.test_all_case``, ``test_3D_util.py:91-152``, without
-    its NIfTI export)."""
+    ``test_3D_util.test_all_case``, ``test_3D_util.py:91-152``). With
+    ``export_dir`` each case is written as ``{id}_pred.nii.gz`` (uint8),
+    ``{id}_img.nii.gz`` (float32) and ``{id}_lab.nii.gz`` (uint8), spacing
+    (1, 1, 1) (``test_3D_util.py:111-124``; ``utils/nifti.py``, the bytes
+    JAX's writer gives), ``id`` the sample's ``case`` or its index. Volume
+    i is scored and exported on the host while the card runs volume i + 1.
+    ``times``: a dict that gains the host's seconds waiting for the card
+    (``predict``), scoring (``metrics``) and writing (``export``)."""
+    import os
+    import time
     ev = SlidingWindowEvaluator(predict_fn, patch_size, num_classes,
                                 stride_xy, stride_z, device=device)
+    clock = {"predict": 0.0, "metrics": 0.0, "export": 0.0}
     rows = []
-    for sample, pred in _scored(ev, dataset, ()):
+    t = time.perf_counter()
+    for idx, (sample, pred) in enumerate(_scored(ev, dataset, ())):
+        t1 = time.perf_counter()
+        clock["predict"] += t1 - t
         label = np.asarray(sample["label"])
         case = []
         for c in range(1, num_classes):
@@ -281,5 +294,23 @@ def test_all_case_full_metrics(predict_fn, dataset, num_classes: int = 2,
             else:
                 case.append((0.0, 0.0, 0.0, 0.0))
         rows.append(np.asarray(case))
+        t = time.perf_counter()
+        clock["metrics"] += t - t1
+        if export_dir is not None:
+            from cvssl_tpu_torch.utils.nifti import save_nifti
+            os.makedirs(export_dir, exist_ok=True)
+            ids = sample.get("case", idx)
+            save_nifti(os.path.join(export_dir, f"{ids}_pred.nii.gz"),
+                       pred.astype(np.uint8))
+            save_nifti(os.path.join(export_dir, f"{ids}_img.nii.gz"),
+                       np.asarray(sample["image"], np.float32))
+            save_nifti(os.path.join(export_dir, f"{ids}_lab.nii.gz"),
+                       label.astype(np.uint8))
+            t2 = time.perf_counter()
+            clock["export"] += t2 - t
+            t = t2
+    if times is not None:
+        for k, v in clock.items():
+            times[k] = times.get(k, 0.0) + v
     rows = np.asarray(rows)
     return rows, rows.mean(axis=0)

@@ -1,5 +1,5 @@
 """Flax weights <-> the port's ``state_dict``, for the UNet family, the
-discriminator, SwinUnet and the contrastive heads.
+discriminators, SwinUnet, the contrastive heads and the 3D nets.
 
 Takes the numpy trees (``params``, ``batch_stats``) of a ``cvssl_tpu``
 UNet-family model on its plain path, of its ``FCDiscriminator`` or of its
@@ -47,9 +47,20 @@ discriminator (``discriminator_3d`` here; ``discriminator`` in the 3D
 registry) is the 2D one's names with a plain Dense: its classifier takes
 the global mean's channel vector.
 
+The 3D zoo (``vnet``, ``voxresnet``, ``attention_unet``, ``nnUNet`` in 2D
+or 3D) keeps the reference torch code's names; each leaf function below
+names its Flax counterparts. nnUNet's layout (pools, convs a stage, deep
+supervision) is read off the tree converted (:func:`nnunet_layout`); VNet
+converts with BatchNorm, its factory default.
+
 Conv kernels go from (kh, kw, in, out) to (out, in, kh, kw), or (kd, kh,
-kw, in, out) to (out, in, kd, kh, kw); Dense kernels from (in, out) to
-(out, in); LayerNorm's ``scale`` is ``weight``.
+kw, in, out) to (out, in, kd, kh, kw); a transpose conv's from (*k, in,
+out) to (in, out, *k) flipped on every spatial axis, since Flax's
+``nn.ConvTranspose`` correlates the dilated input with the kernel as it is
+and torch's is the gradient of a conv (as
+``cvssl_tpu/models/monai_checkpoint.py`` converts them); Dense kernels from
+(in, out) to (out, in); LayerNorm's and the affine InstanceNorm's
+``scale`` is ``weight``.
 """
 from __future__ import annotations
 
@@ -67,9 +78,12 @@ import torch
 Leaf = Tuple[str, str, Tuple[str, ...], str]
 
 
-def _conv(port: str, path: Tuple[str, ...]) -> List[Leaf]:
-    return [(f"{port}.weight", "params", path + ("kernel",), "kernel"),
-            (f"{port}.bias", "params", path + ("bias",), "plain")]
+def _conv(port: str, path: Tuple[str, ...], bias: bool = True,
+          kind: str = "kernel") -> List[Leaf]:
+    out = [(f"{port}.weight", "params", path + ("kernel",), kind)]
+    if bias:
+        out.append((f"{port}.bias", "params", path + ("bias",), "plain"))
+    return out
 
 
 def _batch_norm(bn: str, p: Tuple[str, ...]) -> List[Leaf]:
@@ -150,6 +164,133 @@ def _unet_3d(deep_sup: bool) -> List[Leaf]:
     for i, k in enumerate((4, 3, 2)):
         out += _conv(f"dsv{k}.dsv.0", (f"UnetDsv3_{i}", "Conv_0"))
     return out + _conv("dsv1", ("Conv_0",))
+
+
+def _vnet() -> List[Leaf]:
+    """VNet with BatchNorm: ``ConvStage_0..8`` are ``block_one`` ...
+    ``block_nine`` (conv ``i`` at ``conv.{3i}``, its norm at ``{3i + 1}``),
+    ``DownConv_0..3`` the ``_dw`` blocks, ``UpDeconv_0..3`` the ``_up``
+    blocks (a transpose conv), ``Conv_0`` ``out_conv``."""
+    names = ("one", "two", "three", "four", "five", "six", "seven", "eight",
+             "nine")
+    convs = (1, 2, 3, 3, 3, 3, 3, 2, 1)
+    out = []
+
+    def stage(port, path, i, conv_name, kind="kernel"):
+        return (_conv(f"{port}.conv.{3 * i}", path + (conv_name,),
+                      kind=kind)
+                + _batch_norm(f"{port}.conv.{3 * i + 1}",
+                              path + (f"_Norm_{i}", "BatchNorm_0")))
+    for k, (name, n) in enumerate(zip(names, convs)):
+        for i in range(n):
+            out += stage(f"block_{name}", (f"ConvStage_{k}",), i,
+                         f"Conv_{i}")
+    for k in range(4):
+        out += stage(f"block_{names[k]}_dw", (f"DownConv_{k}",), 0,
+                     "Conv_0")
+        out += stage(f"block_{names[k + 4]}_up", (f"UpDeconv_{k}",), 0,
+                     "ConvTranspose_0", "tkernel")
+    return out + _conv("out_conv", ("Conv_0",))
+
+
+def _voxresnet() -> List[Leaf]:
+    """VoxResNet: ``Conv_0`` is ``conv1``, ``VoxRex_0..5`` ``res1..6``
+    (``block.2``/``block.5``, no bias), ``_UpBlock_0..1`` ``up1``/``up2``
+    (``conv.conv_conv.2``/``.5``), ``Conv_1`` ``out``."""
+    def pre_act(port, path):
+        return (_conv(f"{port}.2", path + ("Conv_0",), bias=False)
+                + _conv(f"{port}.5", path + ("Conv_1",), bias=False))
+    out = _conv("conv1", ("Conv_0",))
+    for k in range(6):
+        out += pre_act(f"res{k + 1}.block", (f"VoxRex_{k}",))
+    for j in range(2):
+        out += pre_act(f"up{j + 1}.conv.conv_conv",
+                       (f"_UpBlock_{j}", "_PreActConvBlock_0"))
+    return out + _conv("out", ("Conv_1",))
+
+
+def _attention_unet() -> List[Leaf]:
+    """AttentionUNet3D: UNet3D's level names, ``Conv_0`` the gating conv
+    (``gating.conv1.0``), ``MultiAttentionBlock_0..2`` ``attentionblock4``
+    .. ``2`` (``GridAttentionBlock3D_0/1`` are ``gate_block_1/2``, whose
+    ``W``/``W_bn`` are ``W.0``/``W.1``; ``Conv_0``/``BatchNorm_0`` are
+    ``combine_gates.0``/``.1``), ``Conv_1`` ``dsv1``, ``Conv_2``
+    ``final``."""
+    out = []
+    for i, name in enumerate(("conv1", "conv2", "conv3", "conv4", "center")):
+        out += _unet_conv3(name, (f"UnetConv3_{i}",))
+    out += _conv("gating.conv1.0", ("Conv_0",))
+    for i, k in enumerate((4, 3, 2)):
+        block, path = f"attentionblock{k}", (f"MultiAttentionBlock_{i}",)
+        for g in range(2):
+            gate = f"{block}.gate_block_{g + 1}"
+            gp = path + (f"GridAttentionBlock3D_{g}",)
+            out += (_conv(f"{gate}.theta", gp + ("theta",), bias=False)
+                    + _conv(f"{gate}.phi", gp + ("phi",))
+                    + _conv(f"{gate}.psi", gp + ("psi",))
+                    + _conv(f"{gate}.W.0", gp + ("W",))
+                    + _batch_norm(f"{gate}.W.1", gp + ("W_bn",)))
+        out += (_conv(f"{block}.combine_gates.0", path + ("Conv_0",))
+                + _batch_norm(f"{block}.combine_gates.1",
+                              path + ("BatchNorm_0",)))
+    for i, k in enumerate((4, 3, 2, 1)):
+        out += _unet_conv3(f"up_concat{k}.conv",
+                           (f"UnetUp3CT_{i}", "UnetConv3_0"))
+    for i, k in enumerate((4, 3, 2)):
+        out += _conv(f"dsv{k}.dsv.0", (f"UnetDsv3_{i}", "Conv_0"))
+    return out + _conv("dsv1", ("Conv_1",)) + _conv("final", ("Conv_2",))
+
+
+def nnunet_layout(tree) -> Tuple[int, int, bool]:
+    """(pools, convs a stage, deep supervision) of a Generic_UNet, read
+    off its Flax ``params`` (``ConvTranspose_{u}``, ``StackedConvLayers_0``'s
+    blocks, the ``Conv_{k}`` heads) or its ``state_dict``'s names
+    (``tu.{u}``, ``conv_blocks_context.0.blocks.{i}``,
+    ``seg_outputs.{u}``)."""
+    if "StackedConvLayers_0" in tree:
+        pools = sum(k.startswith("ConvTranspose_") for k in tree)
+        convs = len(tree["StackedConvLayers_0"])
+        heads = sum(k.startswith("Conv_") for k in tree)
+    else:
+        def count(pattern):
+            return len({m.group(1) for m in (re.match(pattern, k)
+                                             for k in tree) if m})
+        pools = count(r"tu\.(\d+)\.")
+        convs = count(r"conv_blocks_context\.0\.blocks\.(\d+)\.")
+        heads = count(r"seg_outputs\.(\d+)\.")
+    return pools, convs, heads > 1
+
+
+def _nnunet(pools: int, convs: int, deep_supervision: bool) -> List[Leaf]:
+    """Generic_UNet: ``StackedConvLayers_{d}`` are the encoder's
+    ``conv_blocks_context.{d}``, the next two the bottleneck's
+    ``conv_blocks_context.{pools}.0``/``.1``, then two a level up
+    (``conv_blocks_localization.{u}.0``/``.1``); ``ConvTranspose_{u}`` is
+    ``tu.{u}``; the heads ``Conv_{k}`` are ``seg_outputs``. A stacked
+    layer holds at least one conv (JAX's always applies its first)."""
+    def stacked(port, k, n):
+        out = []
+        for i in range(max(n, 1)):
+            path = (f"StackedConvLayers_{k}", f"ConvNormNonlin_{i}")
+            out += (_conv(f"{port}.blocks.{i}.conv", path + ("Conv_0",))
+                    + _layer_norm(f"{port}.blocks.{i}.instnorm",
+                                  path + ("InstanceNormAffine_0",)))
+        return out
+    out = []
+    for d in range(pools):
+        out += stacked(f"conv_blocks_context.{d}", d, convs)
+    out += stacked(f"conv_blocks_context.{pools}.0", pools, convs - 1)
+    out += stacked(f"conv_blocks_context.{pools}.1", pools + 1, 1)
+    for u in range(pools):
+        out += _conv(f"tu.{u}", (f"ConvTranspose_{u}",), bias=False,
+                     kind="tkernel")
+        k = pools + 2 + 2 * u
+        out += stacked(f"conv_blocks_localization.{u}.0", k, convs - 1)
+        out += stacked(f"conv_blocks_localization.{u}.1", k + 1, 1)
+    heads = range(pools) if deep_supervision else (pools - 1,)
+    for i, u in enumerate(heads):
+        out += _conv(f"seg_outputs.{u}", (f"Conv_{i}",), bias=False)
+    return out
 
 
 def _head(blocks: int, final: bool) -> List[Leaf]:
@@ -240,10 +381,19 @@ def _pooled_side(n_in: int, channels: int) -> int:
     return side
 
 
-def leaves(net_type: str, depths: Sequence[int] = (2, 2, 2, 2)
-           ) -> List[Leaf]:
+def leaves(net_type: str, depths: Sequence[int] = (2, 2, 2, 2),
+           layout: Tuple[int, int, bool] = (6, 2, False)) -> List[Leaf]:
     """Every tensor of ``net_type``'s ``state_dict`` with its place in the
-    flax trees (``depths``: SwinUnet's stages)."""
+    flax trees (``depths``: SwinUnet's stages; ``layout``: nnUNet's, as
+    :func:`nnunet_layout` reads it)."""
+    if net_type == "vnet":
+        return _vnet()
+    if net_type == "voxresnet":
+        return _voxresnet()
+    if net_type == "attention_unet":
+        return _attention_unet()
+    if net_type == "nnUNet":
+        return _nnunet(*layout)
     if net_type == "discriminator":
         return _discriminator()
     if net_type == "discriminator_3d":
@@ -279,20 +429,51 @@ def _get(tree: Mapping, path: Tuple[str, ...]):
     return tree
 
 
+def torch_kernel(v: np.ndarray, kind: str = "kernel") -> np.ndarray:
+    """A Flax conv kernel (*k, in, out) as torch's: (out, in, *k) for a
+    conv (``kind`` "kernel"), (in, out, *k) flipped on every spatial axis
+    for a transpose conv ("tkernel")."""
+    n = v.ndim - 2
+    if kind == "kernel":
+        return np.transpose(v, (n + 1, n) + tuple(range(n)))
+    return np.ascontiguousarray(np.flip(
+        np.transpose(v, (n, n + 1) + tuple(range(n))), tuple(range(2, n + 2))))
+
+
+def flax_kernel(v: np.ndarray, kind: str = "kernel") -> np.ndarray:
+    """The inverse of :func:`torch_kernel`."""
+    spatial = tuple(range(2, v.ndim))
+    if kind == "kernel":
+        return np.transpose(v, spatial + (1, 0))
+    return np.transpose(np.flip(v, spatial), spatial + (0, 1))
+
+
+def _leaves_of(net_type: str, tree: Mapping) -> List[Leaf]:
+    """:func:`leaves` with the stage layout read off ``tree`` (a Flax
+    ``params`` tree or a ``state_dict``)."""
+    if net_type == "nnUNet":
+        return leaves(net_type, layout=nnunet_layout(tree))
+    if net_type == "vnet" and not (
+            "block_one.conv.1.running_mean" in tree
+            or "BatchNorm_0" in tree.get("ConvStage_0", {}).get("_Norm_0",
+                                                                {})):
+        raise ValueError("vnet: only normalization='batchnorm' converts")
+    return leaves(net_type, swin_depths(tree))
+
+
 def state_dict_from_flax(net_type: str, params: Mapping,
                          batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """(params, batch_stats) of the ``cvssl_tpu`` model registered as
     ``net_type`` -> a ``state_dict`` for the port's model of that name."""
     trees = {"params": params, "batch_stats": batch_stats}
     sd: Dict[str, np.ndarray] = {}
-    for key, coll, path, kind in leaves(net_type, swin_depths(params)):
+    for key, coll, path, kind in _leaves_of(net_type, params):
         if kind == "count":
             sd[key] = np.zeros((), np.int64)
             continue
         v = np.asarray(_get(trees[coll], path))
-        if kind == "kernel":            # (*k, in, out) -> (out, in, *k)
-            v = np.transpose(v, (v.ndim - 1, v.ndim - 2)
-                             + tuple(range(v.ndim - 2)))
+        if kind in ("kernel", "tkernel"):
+            v = torch_kernel(v, kind)
         elif kind == "dense":
             v = v.T
         elif kind.startswith("dense:"):        # (h*w*c, out) -> (out, c*h*w)
@@ -309,13 +490,13 @@ def flax_from_state_dict(net_type: str, state_dict: Mapping
     """The inverse: a port ``state_dict`` (or any mapping with its keys, such
     as gradients) -> numpy (params, batch_stats) trees."""
     trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
-    for key, coll, path, kind in leaves(net_type, swin_depths(state_dict)):
+    for key, coll, path, kind in _leaves_of(net_type, state_dict):
         if kind == "count":
             continue
         v = state_dict[key]
         v = np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
-        if kind == "kernel":            # (out, in, *k) -> (*k, in, out)
-            v = np.transpose(v, tuple(range(2, v.ndim)) + (1, 0))
+        if kind in ("kernel", "tkernel"):
+            v = flax_kernel(v, kind)
         elif kind == "dense":
             v = v.T
         elif kind.startswith("dense:"):        # (out, c*h*w) -> (h*w*c, out)

@@ -1,14 +1,19 @@
 """Model registries (port of ``cvssl_tpu/models/factory.py``): in 2D the
-UNet family, the discriminator, SwinUnet and the contrastive heads; in 3D
-``unet_3D``, ``unet_3D_dv_semi`` and the discriminator so far."""
+UNet family, the discriminator, SwinUnet, the contrastive heads and
+``nnUNet``; in 3D ``unet_3D``, ``unet_3D_dv_semi``, ``vnet``,
+``voxresnet``, ``attention_unet``, ``nnUNet`` and the discriminator.
+
+Not ported yet: the 2D nets ``enet``, ``pnet``, ``efficient_unet`` and
+``preunet``, and the 3D ViTs ``unetr`` and ``swinunetr``."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from torch import nn
 
-from cvssl_tpu_torch.models import (discriminator, projector, swin_unet,
-                                    unet, unet3d)
+from cvssl_tpu_torch.models import (attention_unet, discriminator, nnunet,
+                                    projector, swin_unet, unet, unet3d, vnet,
+                                    voxresnet)
 
 _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "unet": lambda in_chns, class_num, **kw: unet.UNet(
@@ -33,6 +38,9 @@ _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
         in_channels=class_num, **kw),
     "classifier": lambda in_chns, class_num, **kw: projector.Classifier(
         in_channels=class_num, **kw),
+    # a true 2D configuration, as in JAX (the reference returns the 3D net)
+    "nnUNet": lambda in_chns, class_num, **kw: nnunet.GenericUNet2D(
+        in_chns=in_chns, num_classes=class_num, **kw),
 }
 _REGISTRY_2D["ViT_Seg"] = _REGISTRY_2D["swin_unet"]
 
@@ -41,6 +49,15 @@ _REGISTRY_3D: Dict[str, Callable[..., nn.Module]] = {
         in_chns=in_chns, num_classes=class_num, **kw),
     "unet_3D_dv_semi": lambda in_chns, class_num, **kw:
         unet3d.UNet3DDeepSup(in_chns=in_chns, num_classes=class_num, **kw),
+    "vnet": lambda in_chns, class_num, **kw: vnet.VNet(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "voxresnet": lambda in_chns, class_num, **kw: voxresnet.VoxResNet(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "attention_unet": lambda in_chns, class_num, **kw:
+        attention_unet.AttentionUNet3D(in_chns=in_chns,
+                                       num_classes=class_num, **kw),
+    "nnUNet": lambda in_chns, class_num, **kw: nnunet.GenericUNet3D(
+        in_chns=in_chns, num_classes=class_num, **kw),
     "discriminator": lambda in_chns, class_num, **kw:
         discriminator.FC3DDiscriminator(num_classes=class_num,
                                         in_chns=in_chns, **kw),

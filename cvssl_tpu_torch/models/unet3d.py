@@ -38,6 +38,14 @@ BASE_FILTERS = (64, 128, 256, 512, 1024)
 DEEP_SUP_DROPOUT = (0.5, 0.3, 0.2, 0.1)   # up4, up3, up2, up1
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with Flax's running-statistics rule, as
+    ``models/unet.py::BatchNorm2d`` (the zoo's BatchNorm: VNet's blocks,
+    AttentionUNet3D's gates)."""
+
+    forward = unet.BatchNorm2d.forward
+
+
 def _no_autocast(x: torch.Tensor):
     return torch.autocast(x.device.type, enabled=False)
 
@@ -66,11 +74,11 @@ def trilinear_x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv_f32(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` in float32 whatever the autocast: JAX's deep-supervision
-    heads are Flax convs without a dtype, so a bfloat16 input meets float32
-    weights and the product is float32."""
+    """``conv`` in its weights' dtype (float32) whatever the autocast:
+    JAX's deep-supervision heads are Flax convs without a dtype, so a
+    bfloat16 input meets float32 weights and the product is float32."""
     with _no_autocast(x):
-        return conv(x.float())
+        return conv(x.to(conv.weight.dtype))
 
 
 def channel_dropout_3d(x: torch.Tensor, p: float,

@@ -154,9 +154,11 @@ class TrainConfig:
 
     def model_dtype(self, net_type: str, device) -> torch.dtype:
         """The dtype ``net_type`` computes in on ``device``: the resolved
-        compute dtype for the plain UNet and SwinUnet, float32 for every
-        other net (the UNet variants and the discriminator have no dtype
-        field in JAX, so they run in float32 whatever ``dtype`` says)."""
+        compute dtype for the plain UNet, SwinUnet and the 3D UNets,
+        float32 for every other net (the UNet variants, the discriminators
+        and the zoo's ``vnet``, ``voxresnet``, ``attention_unet`` and
+        ``nnUNet`` have no dtype field in JAX, whose ``model_kwargs`` gives
+        them none, so they run in float32 whatever ``dtype`` says)."""
         if net_type in self.COMPUTE_DTYPE_NETS:
             return self.compute_dtype(device)
         return torch.float32

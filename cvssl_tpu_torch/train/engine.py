@@ -23,8 +23,8 @@ TF32); under ``dtype="auto"`` the plain UNet's convolutions and SwinUnet's
 matmuls run in bfloat16 through autocast, with float32 parameters,
 BatchNorm statistics and losses; the UNet variants and the discriminator
 run in float32, as in JAX (``TrainConfig.model_dtype``); the 3D UNets
-compute in bfloat16 as the plain UNet does, and their discriminator in
-float32.
+compute in bfloat16 as the plain UNet does, and their discriminator and
+the 3D zoo (VNet, VoxResNet, AttentionUNet3D, nnUNet) in float32.
 """
 from __future__ import annotations
 
@@ -453,10 +453,12 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     pinned and copied to the card without blocking), as JAX's rule picks.
     At ``dim=3`` the store is ``DeviceVolumeStore`` (crop, rot90 and flip
     in the step) while its estimate stays under 8 GiB (JAX
-    ``engine.py:558-563``), else the host pipeline with RandomRotFlip3D +
-    RandomCrop; a given ``data`` then has its train set raw where the
-    store takes it, and with the host transform where it does not
-    (``DeviceVolumeStore.estimated_bytes`` decides). Validation is the
+    ``engine.py:558-563``) and the patch's first two sides are equal
+    (nnUNet's 96 x 128 x 128 is not; JAX's store fails to trace it), else
+    the host pipeline with RandomRotFlip3D + RandomCrop; a given ``data``
+    then has its train set raw where the store takes it, and with the
+    host transform where it does not (``DeviceVolumeStore.takes_patch``
+    and ``estimated_bytes`` decide). Validation is the
     sliding window (:meth:`Engine.validate`).
     A method on CTAugment (``transform == "cta"``) always takes the host
     path, the pipeline with the method's policies
@@ -495,8 +497,9 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
         if use_store:
             probe = data[0] if data is not None else VolumeDataset(
                 cfg.root_path, "train")
-            use_store = DeviceVolumeStore.estimated_bytes(
-                probe, cfg.patch_size) < STORE_LIMIT_BYTES
+            use_store = DeviceVolumeStore.takes_patch(cfg.patch_size) and \
+                DeviceVolumeStore.estimated_bytes(
+                    probe, cfg.patch_size) < STORE_LIMIT_BYTES
         if data is None:
             data = build_3d_data(cfg, method.supervised_only, raw=use_store)
     elif data is None:
