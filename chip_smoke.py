@@ -179,14 +179,31 @@ the run with a non-zero exit:
    256^2, 4 classes, float32), 5 + 5 checked and 10 timed. Each part's
    seconds are printed. ``--test-zoo-only`` builds the CE+Dice source
    alone and runs this phase on the weights of two short fits;
-10. one JSON line of the kernels (kernel #1's with its launches in each
-   method's run of phases 5, 5b, 8 and 9 and in the
-   contrastive_consistency and UAMT-3D ``fit``s; phase 5b's
+10. the 3D ViTs at ``train_fully_supervised_3D_ViT``'s recipe
+   (supervised, batch 4, 2 classes, float32): kernel #1 at UNETR's (4, 2,
+   96, 96, 96) and SwinUNETR's (4, 2, 64, 64, 64) float32 with int32
+   labels against float64, bit-equal on repeat, and its times there;
+   UNETR (92,783,842 parameters) at 96^3 and SwinUNETR (62,186,708) at
+   64^3 from a store of the 250 volumes (batches of the 25 labeled): 5 + 5
+   checked steps (kernel #1 once each way a step; under "error" where
+   phase 5 ran so), 10 timed, a one-step profile, the eval softmax
+   summing to 1, the sliding window over one volume and the float32 eval
+   forward on one window against the CPU; then a supervised UNETR
+   ``fit`` of 40 iterations (one validation over 2 volumes, one
+   checkpoint) and the 3D test CLI with ``--model unetr`` on its weights
+   over 2 volumes (``metrics.txt`` parsed, the exports present). Each
+   part's seconds are printed. ``--vit3d-only`` builds the CE+Dice source
+   alone and runs only this phase;
+11. one JSON line of the kernels (kernel #1's with its launches in each
+   method's run of phases 5, 5b, 8, 9 and 10 and in the
+   contrastive_consistency, UAMT-3D and UNETR ``fit``s; phase 5b's
    contrastive_cross as ``contrastive_cross_vit``, config 3's methods as
    ``supervised_swin`` and ``uamt_swin``, phase 8's with ``_3d``, phase
-   9's as ``mean_teacher_vnet_3d`` ... ``mean_teacher_nnunet_2d``; under
-   ``at_5d`` its error and times at config 5's shape, under
-   ``at_nnunet`` at nnUNet's), then the result line
+   9's as ``mean_teacher_vnet_3d`` ... ``mean_teacher_nnunet_2d``, phase
+   10's as ``supervised_unetr_3d``, ``supervised_swinunetr_3d`` and
+   ``unetr_fit``; under ``at_5d`` its error and times at config 5's
+   shape, under ``at_nnunet`` at nnUNet's, under ``at_unetr`` and
+   ``at_swinunetr`` at the ViTs'), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -314,7 +331,8 @@ METHOD_LAUNCHES_3D = {"supervised": 1, "mean_teacher": 1, "cps": 2,
                       "exam_student_teacher": 1}
 MODEL_PARAMS_3D = {"unet_3D": 5_884_050, "discriminator": 11_024_386,
                    "vnet": 9_448_866, "voxresnet": 1_992_578,
-                   "attention_unet": 6_469_328, "nnUNet": 30_444_656}
+                   "attention_unet": 6_469_328, "nnUNet": 30_444_656,
+                   "unetr": 92_783_842, "swinunetr": 62_186_708}
 UAMT_3D_CHECKED, UAMT_3D_TIMED = 10, 30
 METHOD_3D_CHECKED, METHOD_3D_TIMED = 5, 10
 # the sliding window: 5 volumes of bench.py:237-288's shape, 18 windows
@@ -345,6 +363,17 @@ ZOO_CHECKED, ZOO_TIMED = 5, 10
 NNUNET_SHAPE = (LABELED_BS_3D, CLASSES_3D, 96, 128, 128)
 # short fits for the test CLIs' checkpoints when phase 9 runs alone
 TEST_FIT_2D, TEST_FIT_3D = 40, 20
+
+# phase 10: the 3D ViTs at train_fully_supervised_3D_ViT.py's recipe
+# (SURVEY.md:141; net_factory_3d.py:24-38): supervised, batch 4, 2
+# classes, float32, UNETR at 96^3 and SwinUNETR at 64^3 (feature size
+# 48), from a store of the 250 volumes drawing from the 25 labeled ones;
+# kernel #1 on the whole batch's logits; a short UNETR fit (one
+# validation over 2 volumes, one checkpoint) and test_3d on 2 volumes
+VIT3D_PATCH = {"unetr": 96, "swinunetr": 64}
+VIT3D_BATCH = 4
+VIT3D_CHECKED, VIT3D_TIMED = 5, 10
+VIT3D_FIT_STEPS, VIT3D_TEST_VOLUMES = 40, 2
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -2719,7 +2748,8 @@ def run_test_3d(device, card, weights):
 
 
 def check_zoo_eval(engine, state, net, window, device):
-    """Phase 9c's eval checks of a zoo net: the softmax of a window batch
+    """Phase 9c's and 10's eval checks of a net: the softmax of a window
+    batch
     sums to 1 over the classes; the sliding window (stride 64) over one
     140 x 180 x 180 volume gives a map of its shape and classes; the
     float32 eval forward on the card against the same weights on the CPU
@@ -2914,6 +2944,165 @@ def run_phase9(device, card, strict, mem_bw, f32_rate, w2d, w3d):
     return {**zoo, "test_2d": test2d, "test_3d": test3d}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the 3D ViTs, UNETR and SwinUNETR, fully supervised
+# ---------------------------------------------------------------------------
+
+def vit3d_shape(net):
+    """Kernel #1's logits at ``net``'s step: the whole batch of 4."""
+    return (VIT3D_BATCH, CLASSES_3D) + (VIT3D_PATCH[net],) * 3
+
+
+def run_vit3d_steps(device, card, strict):
+    """Phase 10.2: each 3D ViT at its recipe (supervised, batch 4, 2
+    classes, float32, its own patch) from a store of the 250 volumes,
+    batches of the 25 labeled: :func:`drive_method` (the parameter count,
+    5 + 5 checked steps with kernel #1 once each way a step, 10 timed, a
+    one-step profile) and :func:`check_zoo_eval` (eval softmax, the
+    sliding window over one volume, the float32 eval forward on one window
+    against the CPU)."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceVolumeStore
+    from cvssl_tpu_torch.data.sampler import ShuffleBatchSampler
+    from cvssl_tpu_torch.train.engine import Engine
+
+    results = {}
+    volumes = brats_volumes(device)
+    for net, side in VIT3D_PATCH.items():
+        t0 = time.perf_counter()
+        patch = (side,) * 3
+        engine = Engine(config_3d("supervised", model=net,
+                                  patch_size=patch))
+        if engine.model_dtypes != {"model": torch.float32}:
+            raise SystemExit(f"{net}: compute dtypes {engine.model_dtypes}")
+        store = DeviceVolumeStore(volumes, patch)
+        engine.attach_store(store)
+        state = engine.init_state()
+        stream = ShuffleBatchSampler(BRATS_LABELED, VIT3D_BATCH,
+                                     rng=np.random.default_rng(14)).epochs()
+        r = drive_method(engine, state, stream, 1, strict, card, VIT3D_BATCH,
+                         checked=VIT3D_CHECKED, timed=VIT3D_TIMED,
+                         profiled=1)
+        r["windows"], r["volume_s"] = check_zoo_eval(engine, state, net,
+                                                     patch, device)
+        results[f"supervised_{net}_3d"] = r
+        print(f"{net}: phase part {time.perf_counter() - t0:.1f} s")
+        del engine, state, store
+        torch.cuda.empty_cache()
+    return results
+
+
+def run_vit3d_fit(device, card):
+    """Phase 10.3: a supervised UNETR ``fit`` of 40 iterations at 96^3 from
+    the store of the 25 labeled volumes (one validation over 2 volumes,
+    one checkpoint), kernel #1 once each way an iteration; then the 3D
+    test CLI with ``--model unetr`` (``load_net`` builds it for the patch)
+    on its weights over 2 volumes of 140 x 180 x 180: ``metrics.txt``
+    parsed and each case's three files present. Returns the fit's
+    launches."""
+    import torch
+    from cvssl_tpu_torch.data.sampler import ShuffleBatchSampler
+    from cvssl_tpu_torch.data.synthetic import blob_volumes
+    from cvssl_tpu_torch.eval import test_3d
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, fit
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vit3d_")
+    cfg = config_3d("supervised", model="unetr", val_every=VIT3D_FIT_STEPS,
+                    ckpt_every=VIT3D_FIT_STEPS, log_every=20,
+                    snapshot_root=tmp, exp="BraTS/smoke_unetr")
+    val = blob_volumes(VAL_3D_SHAPES[:2], seed=20_000,
+                       num_classes=CLASSES_3D)
+    sampler = ShuffleBatchSampler(BRATS_LABELED, VIT3D_BATCH,
+                                  rng=np.random.default_rng(cfg.seed))
+    fcd.reset_launches()
+    t0 = time.perf_counter()
+    res = fit(cfg, engine=Engine(cfg), max_steps=VIT3D_FIT_STEPS,
+              data=(brats_volumes(device, BRATS_LABELED), sampler, val))
+    wall = time.perf_counter() - t0
+    launches = dict(fcd.LAUNCHES)
+    if res["iterations"] != VIT3D_FIT_STEPS or any(
+            v != VIT3D_FIT_STEPS for v in launches.values()):
+        raise SystemExit(f"UNETR fit: {res['iterations']} iterations, "
+                         f"launches {launches}")
+    snap = cfg.snapshot_path()
+    files = sorted(os.listdir(snap))
+    if f"model_iter_{VIT3D_FIT_STEPS}.ckpt" not in files:
+        raise SystemExit(f"UNETR fit: no checkpoint in {files}")
+    weights = test_weights(snap, "unetr", res["state"])
+    print(f"UNETR fit: {VIT3D_FIT_STEPS} iterations, "
+          f"{res['slices_per_sec']:.3f} volumes/s including validation and "
+          f"checkpoints ({wall:.1f} s wall with the store build), val pass "
+          f"{[round(v, 3) for v in res['val_seconds']]} s, fused launches "
+          f"{launches}, best dice {res['best_dice']}; files {files}; on "
+          f"{card}")
+    del res
+    torch.cuda.empty_cache()
+
+    src = brats_volumes(device, VIT3D_TEST_VOLUMES, seed=900)
+    vols = [{"image": src[i]["image"].cpu().numpy(),
+             "label": src[i]["label"].cpu().numpy(),
+             "case": f"BraTS19_{i:03d}"} for i in range(VIT3D_TEST_VOLUMES)]
+    flags = test_3d.build_parser().parse_args([
+        "--root_path", tmp, "--exp", "BraTS2019/smoke_unetr_test",
+        "--model", "unetr", "--labeled_num", str(BRATS_LABELED),
+        "--patch_size", "96", "96", "96", "--snapshot_root", tmp])
+    placed_weights(flags, weights)
+    t0 = time.perf_counter()
+    mean = test_3d.inference(flags, dataset=vols)
+    wall = time.perf_counter() - t0
+    out = test_3d.snapshot_dir(flags) + "_predictions"
+    with open(os.path.join(out, "metrics.txt")) as f:
+        rows = [ln.strip().split(",") for ln in f]
+    table = np.asarray([r[1:] for r in rows], float)
+    if ([r[0] for r in rows] != [str(i) for i in range(VIT3D_TEST_VOLUMES)]
+            + ["mean"] or table.shape != (VIT3D_TEST_VOLUMES + 1, 4)
+            or not np.isfinite(table).all()
+            or not np.allclose(table[-1], mean.ravel())):
+        raise SystemExit(f"test_3d --model unetr metrics.txt: {rows}")
+    missing = [f"{v['case']}_{tag}.nii.gz" for v in vols
+               for tag in ("pred", "img", "lab")
+               if not os.path.exists(os.path.join(
+                   out, f"{v['case']}_{tag}.nii.gz"))]
+    if missing:
+        raise SystemExit(f"test_3d --model unetr: no {missing}")
+    print(f"test_3d --model unetr: {VIT3D_TEST_VOLUMES} volumes of "
+          f"{BRATS_VOLUME}, patch 96^3, mean (dice, ravd, hd95, asd) "
+          f"{mean.round(4).tolist()}; {wall:.2f} s; metrics.txt and the "
+          f"exports present, on {card}")
+    return launches
+
+
+def run_vit3d(device, card, strict, mem_bw, f32_rate):
+    """Phase 10: kernel #1 at the ViTs' (4, 2, 96, 96, 96) and (4, 2, 64,
+    64, 64) float32 with int32 labels against float64, bit-equal on
+    repeat, and its times there; :func:`run_vit3d_steps`;
+    :func:`run_vit3d_fit`. Each part's seconds printed. Returns kernel
+    #1's errors and times at each net's shape and the launches of each
+    run."""
+    import torch
+
+    t_phase = t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(10)
+    err, timing = {}, {}
+    for net in VIT3D_PATCH:
+        err[net] = {"ce_dice_fwd": 0.0, "ce_dice_bwd": 0.0}
+        check_case(device, gen, vit3d_shape(net), torch.float32,
+                   torch.int32, False, True, err[net])
+        timing[net] = time_kernels(device, mem_bw, f32_rate,
+                                   vit3d_shape(net), "float32")
+    print(f"phase 10 part kernel #1 at the ViTs' shapes: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    methods = run_vit3d_steps(device, card, strict)
+    print(f"phase 10 part steps: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    methods["unetr_fit"] = {"launches": run_vit3d_fit(device, card)}
+    print(f"phase 10 part fit + test_3d: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 10 (3D ViTs): {time.perf_counter() - t_phase:.1f} s")
+    return {"err": err, "timing": timing, "methods": methods}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2933,6 +3122,11 @@ def main(argv=None) -> int:
         "CLIs on the weights of two short fits, then the zoo, its checked "
         "steps under sync debug mode \"error\"), then stop without the "
         "result line")
+    parser.add_argument(
+        "--vit3d-only", dest="only_vit3d", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 10 (the 3D "
+        "ViTs, their checked steps under sync debug mode \"error\"), then "
+        "stop without the result line")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2953,7 +3147,7 @@ def main(argv=None) -> int:
             built[name] = time.perf_counter() - t0
         except Exception as e:  # re-raised in the main thread below
             built[name] = e
-    sources = ([] if args.only_3d or args.only_9
+    sources = ([] if args.only_3d or args.only_9 or args.only_vit3d
                else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
@@ -3005,6 +3199,11 @@ def main(argv=None) -> int:
         print("chip_smoke --test-zoo-only: phase 9 passed; no result line "
               "(the other phases did not run)")
         return 0
+    if args.only_vit3d:
+        run_vit3d(device, smi, True, mem_bw, f32_rate)
+        print("chip_smoke --vit3d-only: phase 10 passed; no result line "
+              "(the other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -3029,6 +3228,8 @@ def main(argv=None) -> int:
     r9 = run_phase9(device, smi, strict, mem_bw, f32_rate, w2d,
                     r3d["weights"])
     methods.update(r9["methods"])
+    r10 = run_vit3d(device, smi, strict, mem_bw, f32_rate)
+    methods.update(r10["methods"])
 
     source = "cvssl_tpu_torch/csrc/fused_ce_dice.cu"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",
@@ -3050,7 +3251,14 @@ def main(argv=None) -> int:
                               "max_abs_err": r9["err"][k],
                               **{f: r9["timing"][k][f] for f in
                                  ("ms", "plain_ms", "bound_ms",
-                                  "bound_by")}}}
+                                  "bound_by")}},
+                **{f"at_{net}": {"shape": list(vit3d_shape(net)),
+                                 "dtype": "float32",
+                                 "max_abs_err": r10["err"][net][k],
+                                 **{f: r10["timing"][net][k][f] for f in
+                                    ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")}}
+                   for net in VIT3D_PATCH}}
                for k in fcd.LAUNCHES]
     replaces = {"conv3x3_p8": "cvssl_tpu/ops/pallas_conv.py:215",
                 "conv3x3_p8_dma": "cvssl_tpu/ops/pallas_conv.py:112",

@@ -59,10 +59,18 @@ def resolve_device(name: str) -> torch.device:
 def load_net(factory, flags, ckpt_path=None):
     """``flags.model`` from ``factory`` with the weights of ``ckpt_path``
     (default ``{snapshot}/{model}_best_model.ckpt``), in eval mode, float32,
-    on ``flags.device``."""
+    on ``flags.device``. The net is built with the constructor arguments
+    ``fit`` gives it at ``flags.patch_size`` (``TrainConfig.model_kwargs``:
+    the ViTs are built for the patch). ``test_2d`` loads its nets here
+    too."""
+    from cvssl_tpu_torch.train.config import TrainConfig
     from cvssl_tpu_torch.utils import checkpoint as ckpt
     device = resolve_device(getattr(flags, "device", "cuda"))
-    net = factory(flags.model, 1, flags.num_classes)
+    cfg = TrainConfig(model=flags.model, dim=len(flags.patch_size),
+                      num_classes=flags.num_classes,
+                      patch_size=tuple(flags.patch_size))
+    net = factory(flags.model, cfg.in_channels, flags.num_classes,
+                  **cfg.model_kwargs(flags.model))
     if ckpt_path is None:
         ckpt_path = os.path.join(snapshot_dir(flags),
                                  f"{flags.model}_best_model.ckpt")

@@ -53,6 +53,13 @@ names its Flax counterparts. nnUNet's layout (pools, convs a stage, deep
 supervision) is read off the tree converted (:func:`nnunet_layout`); VNet
 converts with BatchNorm, its factory default.
 
+The 3D ViTs (``unetr``, ``swinunetr``) keep MONAI's names, the keys
+``cvssl_tpu/models/monai_checkpoint.py`` reads, and this is the inverse of
+its two converters (:func:`_unetr`, :func:`_swin_unetr` name the Flax
+counterparts); UNETR's block count and SwinUNETR's depths are read off the
+tree converted (:func:`vit3d_layout`). UNETR's ``position_embeddings`` is
+copied as it is.
+
 Conv kernels go from (kh, kw, in, out) to (out, in, kh, kw), or (kd, kh,
 kw, in, out) to (out, in, kd, kh, kw); a transpose conv's from (*k, in,
 out) to (in, out, *k) flipped on every spatial axis, since Flax's
@@ -373,6 +380,116 @@ def swin_depths(names: Iterable[str]) -> Tuple[int, ...]:
     return tuple(depth[i] for i in range(len(depth)))
 
 
+def _res_block(port: str, path: Tuple[str, ...], project: bool
+               ) -> List[Leaf]:
+    """MONAI ``UnetResBlock`` (``{port}.conv{k}.conv``): JAX's
+    ``_ResConvBlock``, its ``conv3`` where it ``project``s."""
+    return [leaf for k in ((1, 2, 3) if project else (1, 2))
+            for leaf in _conv(f"{port}.conv{k}.conv", path + (f"conv{k}",),
+                              bias=False)]
+
+
+def _deconv(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    return _conv(f"{port}.conv", path + ("ConvTranspose_0",), bias=False,
+                 kind="tkernel")
+
+
+def _up_block(name: str) -> List[Leaf]:
+    """MONAI ``UnetrUpBlock``: JAX's ``_UpBlock``."""
+    return (_deconv(f"{name}.transp_conv", (name, "transp_conv"))
+            + _res_block(f"{name}.conv_block", (name, "conv_block"), True))
+
+
+def _vit_block(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    return (_layer_norm(f"{port}.norm1", path + ("norm1",))
+            + _layer_norm(f"{port}.norm2", path + ("norm2",))
+            + _dense(f"{port}.attn.qkv", path + ("attn", "qkv"), bias=False)
+            + _dense(f"{port}.attn.out_proj", path + ("attn", "out_proj"))
+            + _dense(f"{port}.mlp.linear1", path + ("linear1",))
+            + _dense(f"{port}.mlp.linear2", path + ("linear2",)))
+
+
+def _unetr(layers: int) -> List[Leaf]:
+    """UNETR under MONAI's names: ``patch_embeddings`` is
+    ``vit.patch_embedding.patch_embeddings.1``, ``blocks_{i}`` is
+    ``vit.blocks.{i}`` (its ``linear1``/``linear2`` under ``mlp``), an
+    encoder's ``blocks_{i}_deconv``/``blocks_{i}_res`` are
+    ``blocks.{i}.0``/``.1``; ``encoder1``'s res block sits under
+    ``layer``."""
+    emb = "vit.patch_embedding"
+    out = (_dense(f"{emb}.patch_embeddings.1", ("patch_embeddings",))
+           + [(f"{emb}.position_embeddings", "params",
+               ("position_embeddings",), "plain")])
+    for i in range(layers):
+        out += _vit_block(f"vit.blocks.{i}", (f"blocks_{i}",))
+    out += _layer_norm("vit.norm", ("norm",))
+    out += _res_block("encoder1.layer", ("encoder1",), True)
+    for k, stages in ((2, 2), (3, 1), (4, 0)):
+        enc = f"encoder{k}"
+        out += _deconv(f"{enc}.transp_conv_init", (enc, "transp_conv_init"))
+        for i in range(stages):
+            out += (_deconv(f"{enc}.blocks.{i}.0", (enc, f"blocks_{i}_deconv"))
+                    + _res_block(f"{enc}.blocks.{i}.1",
+                                 (enc, f"blocks_{i}_res"), False))
+    for k in (5, 4, 3, 2):
+        out += _up_block(f"decoder{k}")
+    return out + _conv("out.conv.conv", ("out",))
+
+
+def _swin_unetr(depths: Sequence[int]) -> List[Leaf]:
+    """SwinUNETR under MONAI's names: ``patch_embed`` is
+    ``swinViT.patch_embed.proj``, ``stage{s}_block{j}`` is
+    ``swinViT.layers{s+1}.0.blocks.{j}`` (its ``Mlp``'s ``Dense_0``/
+    ``Dense_1`` are ``mlp.linear1``/``mlp.linear2``), ``merge{s}`` is
+    ``swinViT.layers{s+1}.0.downsample``; the encoders' res blocks sit
+    under ``layer``, ``encoder1``'s (from the input's channels) with a
+    ``conv3``."""
+    out = _conv("swinViT.patch_embed.proj", ("patch_embed",))
+    for s, depth in enumerate(depths):
+        layer = f"swinViT.layers{s + 1}.0"
+        for j in range(depth):
+            port, path = f"{layer}.blocks.{j}", (f"stage{s}_block{j}",)
+            out += (_layer_norm(f"{port}.norm1", path + ("norm1",))
+                    + [(f"{port}.attn.relative_position_bias_table",
+                        "params",
+                        path + ("attn", "relative_position_bias_table"),
+                        "plain")]
+                    + _dense(f"{port}.attn.qkv", path + ("attn", "qkv"))
+                    + _dense(f"{port}.attn.proj", path + ("attn", "proj"))
+                    + _layer_norm(f"{port}.norm2", path + ("norm2",))
+                    + _dense(f"{port}.mlp.linear1", path + ("mlp", "Dense_0"))
+                    + _dense(f"{port}.mlp.linear2",
+                             path + ("mlp", "Dense_1")))
+        out += (_layer_norm(f"{layer}.downsample.norm", (f"merge{s}", "norm"))
+                + _dense(f"{layer}.downsample.reduction",
+                         (f"merge{s}", "reduction"), bias=False))
+    for k in (1, 2, 3, 4, 10):
+        out += _res_block(f"encoder{k}.layer", (f"encoder{k}",), k == 1)
+    for k in (5, 4, 3, 2, 1):
+        out += _up_block(f"decoder{k}")
+    return out + _conv("out.conv.conv", ("out",))
+
+
+def vit3d_layout(tree) -> Tuple[int, ...]:
+    """UNETR's block count (one element) or SwinUNETR's stage depths, read
+    off a Flax ``params`` tree (``blocks_{i}``, ``stage{s}_block{j}``) or a
+    ``state_dict``'s names (``vit.blocks.{i}.``,
+    ``swinViT.layers{s+1}.0.blocks.{j}.``)."""
+    depth: Dict[int, int] = {}
+    for name in tree:
+        m = re.match(r"(?:blocks_(\d+)$|vit\.blocks\.(\d+)\.)", name)
+        if m:
+            depth[0] = max(depth.get(0, 0), int(m.group(1) or m.group(2)) + 1)
+            continue
+        m = re.match(r"(?:stage(\d+)_block(\d+)$|swinViT\.layers(\d+)\.0"
+                     r"\.blocks\.(\d+)\.)", name)
+        if m:
+            s, j = (int(g) for g in m.groups() if g is not None)
+            s = s - 1 if m.group(3) else s
+            depth[s] = max(depth.get(s, 0), j + 1)
+    return tuple(depth[i] for i in range(len(depth)))
+
+
 def _pooled_side(n_in: int, channels: int) -> int:
     side = int(round((n_in // channels) ** 0.5))
     if side * side * channels != n_in:
@@ -384,8 +501,13 @@ def _pooled_side(n_in: int, channels: int) -> int:
 def leaves(net_type: str, depths: Sequence[int] = (2, 2, 2, 2),
            layout: Tuple[int, int, bool] = (6, 2, False)) -> List[Leaf]:
     """Every tensor of ``net_type``'s ``state_dict`` with its place in the
-    flax trees (``depths``: SwinUnet's stages; ``layout``: nnUNet's, as
+    flax trees (``depths``: SwinUnet's or SwinUNETR's stages, UNETR's
+    block count as its one element; ``layout``: nnUNet's, as
     :func:`nnunet_layout` reads it)."""
+    if net_type == "unetr":
+        return _unetr(depths[0])
+    if net_type == "swinunetr":
+        return _swin_unetr(depths)
     if net_type == "vnet":
         return _vnet()
     if net_type == "voxresnet":
@@ -453,6 +575,8 @@ def _leaves_of(net_type: str, tree: Mapping) -> List[Leaf]:
     ``params`` tree or a ``state_dict``)."""
     if net_type == "nnUNet":
         return leaves(net_type, layout=nnunet_layout(tree))
+    if net_type in ("unetr", "swinunetr"):
+        return leaves(net_type, vit3d_layout(tree))
     if net_type == "vnet" and not (
             "block_one.conv.1.running_mean" in tree
             or "BatchNorm_0" in tree.get("ConvStage_0", {}).get("_Norm_0",

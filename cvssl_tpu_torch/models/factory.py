@@ -1,10 +1,12 @@
 """Model registries (port of ``cvssl_tpu/models/factory.py``): in 2D the
 UNet family, the discriminator, SwinUnet, the contrastive heads and
 ``nnUNet``; in 3D ``unet_3D``, ``unet_3D_dv_semi``, ``vnet``,
-``voxresnet``, ``attention_unet``, ``nnUNet`` and the discriminator.
+``voxresnet``, ``attention_unet``, ``nnUNet``, the ViTs ``unetr`` and
+``swinunetr`` (built for ``img_size``, which ``TrainConfig.model_kwargs``
+sets to the patch) and the discriminator.
 
 Not ported yet: the 2D nets ``enet``, ``pnet``, ``efficient_unet`` and
-``preunet``, and the 3D ViTs ``unetr`` and ``swinunetr``."""
+``preunet``."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -12,8 +14,8 @@ from typing import Callable, Dict
 from torch import nn
 
 from cvssl_tpu_torch.models import (attention_unet, discriminator, nnunet,
-                                    projector, swin_unet, unet, unet3d, vnet,
-                                    voxresnet)
+                                    projector, swin_unet, swin_unetr, unet,
+                                    unet3d, unetr, vnet, voxresnet)
 
 _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "unet": lambda in_chns, class_num, **kw: unet.UNet(
@@ -57,6 +59,10 @@ _REGISTRY_3D: Dict[str, Callable[..., nn.Module]] = {
         attention_unet.AttentionUNet3D(in_chns=in_chns,
                                        num_classes=class_num, **kw),
     "nnUNet": lambda in_chns, class_num, **kw: nnunet.GenericUNet3D(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "unetr": lambda in_chns, class_num, **kw: unetr.UNETR(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "swinunetr": lambda in_chns, class_num, **kw: swin_unetr.SwinUNETR(
         in_chns=in_chns, num_classes=class_num, **kw),
     "discriminator": lambda in_chns, class_num, **kw:
         discriminator.FC3DDiscriminator(num_classes=class_num,

@@ -139,17 +139,23 @@ class TrainConfig:
     COMPUTE_DTYPE_NETS = ("unet", "swin_unet", "ViT_Seg", "unet_3D",
                           "unet_3D_dv_semi")
     VIT_NETS = ("swin_unet", "ViT_Seg")
+    # the 3D ViTs: built for the patch (UNETR's position table, SwinUNETR's
+    # windows), as JAX's init at the sample batch sizes them
+    VIT_NETS_3D = ("unetr", "swinunetr")
 
     def model_kwargs(self, net_type: str) -> dict:
         """Constructor arguments of ``net_type``: for the ViT slot the
         training patch as ``img_size`` (the reference builds ``ViT_seg``
         with ``img_size=args.patch_size``; the port's SwinUnet fixes each
-        stage's window from it), then ``vit_kwargs``; nothing for the other
+        stage's window from it), then ``vit_kwargs``; for ``unetr`` and
+        ``swinunetr`` the patch as ``img_size``; nothing for the other
         nets. The dtype is not among them: it is :meth:`model_dtype`, under
         which the engine autocasts each model."""
         if net_type in self.VIT_NETS:
             return {"img_size": tuple(self.patch_size),
                     **(self.vit_kwargs or {})}
+        if net_type in self.VIT_NETS_3D:
+            return {"img_size": tuple(self.patch_size)}
         return {}
 
     def model_dtype(self, net_type: str, device) -> torch.dtype:
@@ -158,7 +164,9 @@ class TrainConfig:
         float32 for every other net (the UNet variants, the discriminators
         and the zoo's ``vnet``, ``voxresnet``, ``attention_unet`` and
         ``nnUNet`` have no dtype field in JAX, whose ``model_kwargs`` gives
-        them none, so they run in float32 whatever ``dtype`` says)."""
+        them none, so they run in float32 whatever ``dtype`` says), and
+        the 3D ViTs ``unetr`` and ``swinunetr``, also without a dtype in
+        JAX)."""
         if net_type in self.COMPUTE_DTYPE_NETS:
             return self.compute_dtype(device)
         return torch.float32

@@ -227,7 +227,7 @@ def test_unet3d_parameters_and_registry():
     assert sum(p.numel() for p in net_factory_3d(
         "unet_3D", 1, 2).parameters()) == 5_884_050
     with pytest.raises(ValueError, match="available"):
-        net_factory_3d("unetr")
+        net_factory_3d("no_such_net")
     params = _init(junet3d.UNet3D(num_classes=2), x)
     back = flax_from_state_dict("unet_3D", state_dict_from_flax(
         "unet_3D", params, {}))[0]
