@@ -194,16 +194,40 @@ the run with a non-zero exit:
    over 2 volumes (``metrics.txt`` parsed, the exports present). Each
    part's seconds are printed. ``--vit3d-only`` builds the CE+Dice source
    alone and runs only this phase;
-11. one JSON line of the kernels (kernel #1's with its launches in each
-   method's run of phases 5, 5b, 8, 9 and 10 and in the
-   contrastive_consistency, UAMT-3D and UNETR ``fit``s; phase 5b's
+11. the rest of the 2D zoo at north-star config 2's recipe
+   (mean_teacher, batch 24 = 12 + 12 at 256^2, 4 classes, float32, as
+   JAX's ``model_kwargs`` gives these nets no dtype): ENet (349,284
+   parameters), PNet2D (486,596), EffiUNet-B3 (12,566,060) and PreUNet
+   on Res2Net-101 (55,581,692) from a store of 1312 ACDC-shaped slices:
+   5 + 5 checked steps (kernel #1 once each way a step; under "error"
+   where phase 5 ran so), 10 timed, a one-step profile, the eval softmax
+   summing to 1 and the float32 eval forward on the card against the CPU;
+   then ``--pretrained_ckpt`` through the CLI's config and ``fit`` on
+   files written from a seed under the published schemas (PreUNet with a
+   Res2Net-101 v1b file and EffiUNet with an EfficientNet-B3 file at
+   config 2, cross_teaching's UNet + ``ViT_Seg`` with a Swin-tiny file at
+   config 4): after init the encoders of the student and of its teacher
+   are the file's and cross_teaching's UNet is as without the file; a fit
+   of 20 iterations (one validation, one checkpoint) with kernel #1's
+   launches counted; then ``test_2d --model efficient_unet`` on the
+   EffiUNet fit's weights over 4 of phase 9a's volumes (the per-class
+   table, the exports present). Each part's seconds are printed.
+   ``--zoo2d-only`` builds the CE+Dice source alone and runs only this
+   phase;
+12. one JSON line of the kernels (kernel #1's with its launches in each
+   method's run of phases 5, 5b, 8, 9, 10 and 11 and in the
+   contrastive_consistency, UAMT-3D, UNETR and pretrained ``fit``s; phase
+   5b's
    contrastive_cross as ``contrastive_cross_vit``, config 3's methods as
    ``supervised_swin`` and ``uamt_swin``, phase 8's with ``_3d``, phase
    9's as ``mean_teacher_vnet_3d`` ... ``mean_teacher_nnunet_2d``, phase
    10's as ``supervised_unetr_3d``, ``supervised_swinunetr_3d`` and
-   ``unetr_fit``; under ``at_5d`` its error and times at config 5's
-   shape, under ``at_nnunet`` at nnUNet's, under ``at_unetr`` and
-   ``at_swinunetr`` at the ViTs'), then the result line
+   ``unetr_fit``, phase 11's as ``mean_teacher_enet`` ...
+   ``mean_teacher_preunet`` and ``mean_teacher_preunet_pretrained_fit``,
+   ``mean_teacher_efficient_unet_pretrained_fit`` and
+   ``cross_teaching_vit_seg_pretrained_fit``; under ``at_5d`` its error
+   and times at config 5's shape, under ``at_nnunet`` at nnUNet's, under
+   ``at_unetr`` and ``at_swinunetr`` at the ViTs'), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -374,6 +398,15 @@ VIT3D_PATCH = {"unetr": 96, "swinunetr": 64}
 VIT3D_BATCH = 4
 VIT3D_CHECKED, VIT3D_TIMED = 5, 10
 VIT3D_FIT_STEPS, VIT3D_TEST_VOLUMES = 40, 2
+
+# phase 11: the rest of the 2D zoo at north-star config 2's recipe
+# (mean_teacher, batch 24 = 12 + 12 at 256^2, 4 classes, float32), then
+# --pretrained_ckpt fits (one validation over 2 volumes, one checkpoint)
+# and test_2d --model efficient_unet on 4 volumes
+ZOO_2D = ("enet", "pnet", "efficient_unet", "preunet")
+MODEL_PARAMS.update({"enet": 349_284, "pnet": 486_596,
+                     "efficient_unet": 12_566_060, "preunet": 55_581_692})
+ZOO2D_FIT_STEPS, ZOO2D_VAL_VOLUMES, ZOO2D_TEST_VOLUMES = 20, 2, 4
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -2601,13 +2634,13 @@ def run_3d(device, card, strict, mem_bw, f32_rate):
 # Phase 9: the held-out test CLIs and the 3D CNN zoo
 # ---------------------------------------------------------------------------
 
-def test_volumes_2d(seed=40_000):
-    """ACDC's test count of blob volumes, ``TEST_2D_SLICES`` slices each,
-    at ACDC's mixed in-plane sizes, by case name."""
+def test_volumes_2d(seed=40_000, n=TEST_2D_VOLUMES):
+    """``n`` blob volumes (ACDC's test count), ``TEST_2D_SLICES`` slices
+    each, at ACDC's mixed in-plane sizes, by case name."""
     from cvssl_tpu_torch.data.synthetic import blob_image
     rng = np.random.default_rng(seed)
     vols = {}
-    for i in range(TEST_2D_VOLUMES):
+    for i in range(n):
         shape = TEST_2D_SHAPES[i % len(TEST_2D_SHAPES)]
         pairs = [blob_image(rng, shape, CLASSES)
                  for _ in range(TEST_2D_SLICES)]
@@ -3103,6 +3136,337 @@ def run_vit3d(device, card, strict, mem_bw, f32_rate):
     return {"err": err, "timing": timing, "methods": methods}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the rest of the 2D zoo and --pretrained_ckpt
+# ---------------------------------------------------------------------------
+
+def check_zoo2d_eval(engine, state, net, store):
+    """Phase 11's eval checks of a 2D net: the float32 softmax of a batch
+    of 24 slices sums to 1 over the classes; the float32 eval forward on
+    the card against the same weights on the CPU on 2 slices of 64^2."""
+    import copy
+
+    import torch
+
+    x = store.images[:BATCH].float()[:, None]
+    model = state.models["model"]
+    probs = engine.eval_probs("model", model, x)
+    err_sum = float((probs.sum(dim=1) - 1).abs().max())
+    if probs.dtype != torch.float32 or err_sum > 1e-5:
+        raise SystemExit(f"{net}: eval softmax {probs.dtype}, sums off by "
+                         f"{err_sum}")
+    ref = copy.deepcopy(model).cpu().eval()
+    small = x[:2, :, :64, :64].contiguous()
+    model.eval()
+    try:
+        with torch.no_grad():
+            got = model(small).cpu()
+    finally:
+        model.train()
+    with torch.no_grad():
+        want = ref(small.cpu())
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"{net} eval: softmax of {tuple(probs.shape)} sums to 1 within "
+          f"{err_sum:.1e}; f32 card vs CPU forward on 2 x 64^2 max rel err "
+          f"{err:.2e}")
+    if got.dtype != torch.float32 or err > 1e-4:
+        raise SystemExit(f"{net}: f32 eval forward on the card disagrees "
+                         "with the CPU")
+
+
+def run_zoo2d_steps(card, strict):
+    """Phase 11.1: mean_teacher at north-star config 2 (batch 24 = 12 + 12
+    at 256^2, 4 classes, float32 as JAX's ``model_kwargs`` gives these
+    nets no dtype) on ENet, PNet2D, EffiUNet-B3 and PreUNet from a store
+    of 1312 ACDC-shaped slices, each through :func:`drive_method` (the
+    parameter count, 5 + 5 checked steps with kernel #1 once each way a
+    step, 10 timed, a one-step profile) and :func:`check_zoo2d_eval`.
+    Returns each run's numbers."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
+    from cvssl_tpu_torch.train.engine import Engine
+
+    t0 = time.perf_counter()
+    store = DeviceSliceStore(SyntheticACDC(), (PATCH, PATCH))
+    print(f"zoo2d store: {tuple(store.images.shape)} built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the store's first gather at a size builds its rotation tables (one
+    # host copy, cached): before the steps checked for synchronising calls
+    store.batch_fn(store.arrays(),
+                   torch.arange(BATCH, device=store.images.device),
+                   torch.Generator(device=store.images.device).manual_seed(0))
+    results = {}
+    for net in ZOO_2D:
+        t0 = time.perf_counter()
+        engine = Engine(method_config("mean_teacher", model=net))
+        if engine.model_dtypes != {"model": torch.float32}:
+            raise SystemExit(f"{net}: compute dtypes {engine.model_dtypes}")
+        engine.attach_store(store)
+        state = engine.init_state()
+        results[f"mean_teacher_{net}"] = drive_method(
+            engine, state, two_stream(14).epochs(), 1, strict, card, BATCH,
+            checked=ZOO_CHECKED, timed=ZOO_TIMED, profiled=1)
+        check_zoo2d_eval(engine, state, net, store)
+        print(f"{net}: phase part {time.perf_counter() - t0:.1f} s")
+        del engine, state
+        torch.cuda.empty_cache()
+    return results
+
+
+def swin_tiny_state_dict(seed=0):
+    """A Swin-tiny ``state_dict`` under the published schema
+    (microsoft/Swin-Transformer ``swin_tiny_patch4_window7_224.pth``:
+    depths 2, 2, 6, 2, heads 3, 6, 12, 24, embed 96; the
+    ``relative_position_index`` and ``attn_mask`` buffers and the
+    ImageNet head), N(0, 0.02) from ``seed``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g) * 0.02
+    depths, heads, embed = (2, 2, 6, 2), (3, 6, 12, 24), 96
+    sd = {"patch_embed.proj.weight": t(embed, 3, 4, 4),
+          "patch_embed.proj.bias": t(embed),
+          "patch_embed.norm.weight": t(embed),
+          "patch_embed.norm.bias": t(embed)}
+    for i, (d, h) in enumerate(zip(depths, heads)):
+        c = embed * 2 ** i
+        for b in range(d):
+            p = f"layers.{i}.blocks.{b}"
+            sd.update({
+                f"{p}.norm1.weight": t(c), f"{p}.norm1.bias": t(c),
+                f"{p}.attn.relative_position_bias_table": t(169, h),
+                f"{p}.attn.relative_position_index": torch.zeros(
+                    (49, 49), dtype=torch.int64),
+                f"{p}.attn.qkv.weight": t(3 * c, c),
+                f"{p}.attn.qkv.bias": t(3 * c),
+                f"{p}.attn.proj.weight": t(c, c),
+                f"{p}.attn.proj.bias": t(c),
+                f"{p}.norm2.weight": t(c), f"{p}.norm2.bias": t(c),
+                f"{p}.mlp.fc1.weight": t(4 * c, c),
+                f"{p}.mlp.fc1.bias": t(4 * c),
+                f"{p}.mlp.fc2.weight": t(c, 4 * c),
+                f"{p}.mlp.fc2.bias": t(c)})
+            if b % 2 == 1:
+                sd[f"{p}.attn_mask"] = torch.zeros(
+                    ((56 // 2 ** i // 7) ** 2, 49, 49))
+        if i < 3:
+            sd.update({
+                f"layers.{i}.downsample.reduction.weight": t(2 * c, 4 * c),
+                f"layers.{i}.downsample.norm.weight": t(4 * c),
+                f"layers.{i}.downsample.norm.bias": t(4 * c)})
+    sd.update({"norm.weight": t(768), "norm.bias": t(768),
+               "head.weight": t(1000, 768), "head.bias": t(1000)})
+    return sd
+
+
+def encoder_state_dict(net, seed):
+    """A published encoder's ``state_dict`` from the port's own module
+    (random weights from ``seed``, BatchNorm statistics off (0, 1)): the
+    Res2Net-101 v1b 26w4s schema with ``layer4``/``fc`` entries the port
+    ignores, or EfficientNet-B3's with its ``_conv_head``/``_bn1``/``_fc``
+    head."""
+    import torch
+    from cvssl_tpu_torch.models import efficientunet, resunet
+    torch.manual_seed(seed)
+    enc = (resunet.Res2NetEncoder() if net == "preunet"
+           else efficientunet.EfficientNetEncoder())
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    sd = dict(enc.state_dict())
+    if net == "preunet":
+        sd["layer4.0.conv1.weight"] = torch.randn(416, 1024, 1, 1)
+        sd["fc.weight"] = torch.randn(1000, 2048) * 0.01
+        sd["fc.bias"] = torch.zeros(1000)
+    else:
+        sd["_conv_head.weight"] = torch.randn(1536, 384, 1, 1) * 0.01
+        sd.update({f"_bn1.{k}": torch.ones(1536) for k in
+                   ("weight", "running_var")})
+        sd.update({f"_bn1.{k}": torch.zeros(1536) for k in
+                   ("bias", "running_mean")})
+        sd["_fc.weight"] = torch.randn(1000, 1536) * 0.01
+        sd["_fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def check_pretrained_init(cfg, sd, prefix, slots, untouched):
+    """After ``Engine(cfg).init_state()`` the ``slots`` (model names) and
+    their teachers hold ``sd``'s tensors wherever the model has the key
+    (under ``prefix``) at the same shape, and the ``untouched`` slots equal
+    an init without the file. Returns the count of tensors checked."""
+    import dataclasses
+
+    import torch
+    from cvssl_tpu_torch.train.engine import Engine
+
+    state = Engine(cfg).init_state()
+    plain = Engine(dataclasses.replace(cfg, pretrained_ckpt=None)
+                   ).init_state()
+    checked = 0
+    for slot in slots:
+        for m in [state.models[slot]] + ([state.teachers[slot]] if slot in
+                                         state.teachers else []):
+            own = m.state_dict()
+            hits = [k for k, v in sd.items() if prefix + k in own
+                    and tuple(v.shape) == tuple(own[prefix + k].shape)
+                    and not k.endswith("num_batches_tracked")]
+            if not hits:
+                raise SystemExit(f"pretrained: nothing of the file in {slot}")
+            for k in hits:
+                if not torch.equal(own[prefix + k].cpu(), sd[k]):
+                    raise SystemExit(f"pretrained: {slot}'s {prefix}{k} is "
+                                     "not the file's after init")
+            checked += len(hits)
+    for slot in untouched:
+        ref = plain.models[slot].state_dict()
+        if not all(torch.equal(v, ref[k]) for k, v in
+                   state.models[slot].state_dict().items()):
+            raise SystemExit(f"pretrained: {slot} (another family) changed")
+    del state, plain
+    torch.cuda.empty_cache()
+    return checked
+
+
+def run_pretrained_fits(card, train_ds, val_ds, vit_val_ds):
+    """Phase 11.2: ``--pretrained_ckpt`` through the CLI's ``fit``
+    (``train/cli.py::config_from_args``) on files written here from a seed
+    under the published schemas: PreUNet with a Res2Net-101 file and
+    EffiUNet with an EfficientNet-B3 file (mean_teacher at config 2), and
+    cross_teaching's UNet + ``ViT_Seg`` with a Swin-tiny file (config 4).
+    For each: after init the student's and the teacher's encoders are the
+    file's (:func:`check_pretrained_init`; cross_teaching's UNet equal to
+    an init without the file); then a fit of 20 iterations with one
+    validation and one checkpoint, kernel #1's launches counted. Returns
+    the launches of each fit and EffiUNet's test weights."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train import cli
+    from cvssl_tpu_torch.train.engine import Engine, fit
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrained_")
+    runs = (("preunet", "mean_teacher", "res2net101_v1b_26w_4s.pth"),
+            ("efficient_unet", "mean_teacher", "efficientnet-b3.pth"),
+            ("ViT_Seg", "cross_teaching",
+             "swin_tiny_patch4_window7_224.pth"))
+    results, weights = {}, None
+    for net, method, name in runs:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, name)
+        vit = net == "ViT_Seg"
+        sd = swin_tiny_state_dict() if vit else encoder_state_dict(net, 15)
+        torch.save({"model": sd} if vit else sd, path)
+        patch = VIT_PATCH if vit else PATCH
+        argv = ["--root_path", tmp, "--exp", f"ACDC/pretrained_{net}",
+                "--method", method, "--max_iterations",
+                str(ZOO2D_FIT_STEPS), "--val_every", str(ZOO2D_FIT_STEPS),
+                "--ckpt_every", str(ZOO2D_FIT_STEPS), "--batch_size",
+                str(VIT_BATCH if vit else BATCH), "--labeled_bs",
+                str(VIT_LABELED_BS if vit else LABELED_BS),
+                "--labeled_slices", str(ACDC_LABELED_SLICES),
+                "--patch_size", str(patch), str(patch),
+                "--snapshot_root", tmp, "--pretrained_ckpt", path]
+        argv += (["--model", "unet", "--model2", net] if vit
+                 else ["--model", net])
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        slots, untouched = (["model2"], ["model1"]) if vit else (["model"],
+                                                                 [])
+        n = check_pretrained_init(cfg, sd, "" if vit else "encoder.", slots,
+                                  untouched)
+        fcd.reset_launches()
+        per_step = 2 if vit else 1
+        res = fit(cfg, engine=Engine(cfg), data=(
+            train_ds, two_stream(cfg.seed, cfg.batch_size, cfg.labeled_bs),
+            vit_val_ds if vit else val_ds))
+        launches = dict(fcd.LAUNCHES)
+        if res["iterations"] != ZOO2D_FIT_STEPS or any(
+                v != per_step * ZOO2D_FIT_STEPS for v in launches.values()):
+            raise SystemExit(f"{net} pretrained fit: {res['iterations']} "
+                             f"iterations, launches {launches}")
+        snap = cfg.snapshot_path()
+        with open(os.path.join(snap, "log.txt")) as f:
+            log = f.read()
+        slot = "model2" if vit else "model"
+        if f"loaded pretrained encoder into {slot} from {path}" not in log \
+                or (vit and "loaded pretrained encoder into model1" in log):
+            raise SystemExit(f"{net} pretrained fit: the log names no load "
+                             f"into {slot} alone")
+        if f"model_iter_{ZOO2D_FIT_STEPS}.ckpt" not in os.listdir(snap):
+            raise SystemExit(f"{net} pretrained fit: no checkpoint in {snap}")
+        if net == "efficient_unet":
+            weights = test_weights(snap, net, res["state"])
+        results[f"{method}_{net.lower()}_pretrained_fit"] = {
+            "launches": launches}
+        print(f"{net} with --pretrained_ckpt {name}: {n} tensors of the "
+              f"file in {slot}{' and its teacher' if not vit else ''} "
+              f"after init{', model1 untouched' if vit else ''}; fit "
+              f"{ZOO2D_FIT_STEPS} iterations, {res['slices_per_sec']:.2f} "
+              f"slices/s including validation and checkpoint, val pass "
+              f"{[round(v, 3) for v in res['val_seconds']]} s, launches "
+              f"{launches}, best dice {res['best_dice']}; "
+              f"{time.perf_counter() - t0:.1f} s, on {card}")
+        del res
+        torch.cuda.empty_cache()
+    return results, weights
+
+
+def run_zoo2d_test(card, weights):
+    """Phase 11.3: ``test_2d --model efficient_unet`` on the pretrained
+    fit's weights over 4 of phase 9a's ACDC-shaped volumes of mixed sizes:
+    the per-class Dice table finite in [0, 1] and each case's three
+    exports present (the 2D CLI writes no ``metrics.txt``, in either
+    package)."""
+    from cvssl_tpu_torch.eval import test_2d
+    from cvssl_tpu_torch.eval.test_3d import snapshot_dir
+
+    vols = test_volumes_2d(n=ZOO2D_TEST_VOLUMES)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo2d_test_")
+    flags = test_2d.build_parser().parse_args([
+        "--root_path", tmp, "--exp", "ACDC/smoke_effiunet_test",
+        "--model", "efficient_unet", "--num_classes", str(CLASSES),
+        "--labeled_num", "7", "--snapshot_root", tmp])
+    placed_weights(flags, weights)
+    t0 = time.perf_counter()
+    avg = test_2d.inference(flags, volumes=vols)
+    wall = time.perf_counter() - t0
+    if avg.shape != (CLASSES - 1, 1) or not np.isfinite(avg).all() or not (
+            (avg >= 0) & (avg <= 1)).all():
+        raise SystemExit(f"test_2d --model efficient_unet: {avg}")
+    out = snapshot_dir(flags) + "_predictions"
+    want = sorted(f"{c}_{t}.nii.gz" for c in vols
+                  for t in ("pred", "img", "gt"))
+    if sorted(os.listdir(out)) != want:
+        raise SystemExit(f"test_2d --model efficient_unet: exports "
+                         f"{sorted(os.listdir(out))}")
+    print(f"test_2d --model efficient_unet: {len(vols)} volumes at "
+          f"{TEST_2D_SHAPES}, per-class dice {avg.ravel().round(4).tolist()}"
+          f"; {wall:.2f} s; the exports present, on {card}")
+
+
+def run_zoo2d(card, strict):
+    """Phase 11: :func:`run_zoo2d_steps`, :func:`run_pretrained_fits` and
+    :func:`run_zoo2d_test`, each part's seconds printed. Returns the
+    launches of each run."""
+    t_phase = t0 = time.perf_counter()
+    methods = run_zoo2d_steps(card, strict)
+    print(f"phase 11 part steps: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_ds = BlobSlices()
+    fits, weights = run_pretrained_fits(
+        card, train_ds, blob_volumes(n=ZOO2D_VAL_VOLUMES),
+        blob_volumes(n=ZOO2D_VAL_VOLUMES, side=VIT_PATCH))
+    methods.update(fits)
+    print(f"phase 11 part pretrained fits: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_zoo2d_test(card, weights)
+    print(f"phase 11 part test_2d: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 11 (2D zoo): {time.perf_counter() - t_phase:.1f} s")
+    return methods
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3127,6 +3491,11 @@ def main(argv=None) -> int:
         help="build only csrc/fused_ce_dice.cu and run phase 10 (the 3D "
         "ViTs, their checked steps under sync debug mode \"error\"), then "
         "stop without the result line")
+    parser.add_argument(
+        "--zoo2d-only", dest="only_zoo2d", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 11 (the 2D "
+        "zoo, its checked steps under sync debug mode \"error\", and the "
+        "--pretrained_ckpt fits), then stop without the result line")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3147,7 +3516,8 @@ def main(argv=None) -> int:
             built[name] = time.perf_counter() - t0
         except Exception as e:  # re-raised in the main thread below
             built[name] = e
-    sources = ([] if args.only_3d or args.only_9 or args.only_vit3d
+    sources = ([] if (args.only_3d or args.only_9 or args.only_vit3d
+                      or args.only_zoo2d)
                else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
@@ -3204,6 +3574,11 @@ def main(argv=None) -> int:
         print("chip_smoke --vit3d-only: phase 10 passed; no result line "
               "(the other phases did not run)")
         return 0
+    if args.only_zoo2d:
+        run_zoo2d(smi, True)
+        print("chip_smoke --zoo2d-only: phase 11 passed; no result line "
+              "(the other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -3230,6 +3605,7 @@ def main(argv=None) -> int:
     methods.update(r9["methods"])
     r10 = run_vit3d(device, smi, strict, mem_bw, f32_rate)
     methods.update(r10["methods"])
+    methods.update(run_zoo2d(smi, strict))
 
     source = "cvssl_tpu_torch/csrc/fused_ce_dice.cu"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",

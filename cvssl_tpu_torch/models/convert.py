@@ -490,6 +490,208 @@ def vit3d_layout(tree) -> Tuple[int, ...]:
     return tuple(depth[i] for i in range(len(depth)))
 
 
+def _pnet() -> List[Leaf]:
+    """PNet2D: ``PNetBlock_{k}`` is ``block{k+1}`` (its ``Conv_0``/
+    ``BatchNorm_0``/``Conv_1``/``BatchNorm_1`` are ``conv1``/``bn1``/
+    ``conv2``/``bn2``), the top-level ``Conv_0``/``Conv_1`` are
+    ``catblock.conv1``/``.conv2``, ``Conv_2``/``Conv_3`` ``out.conv1``/
+    ``.conv2``."""
+    out = []
+    for k in range(5):
+        p = (f"PNetBlock_{k}",)
+        for i in range(2):
+            out += (_conv(f"block{k + 1}.conv{i + 1}", p + (f"Conv_{i}",))
+                    + _batch_norm(f"block{k + 1}.bn{i + 1}",
+                                  p + (f"BatchNorm_{i}",)))
+    for i, port in enumerate(("catblock.conv1", "catblock.conv2",
+                              "out.conv1", "out.conv2")):
+        out += _conv(port, (f"Conv_{i}",))
+    return out
+
+
+def _prelu(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    return [(f"{port}.weight", "params", path + ("prelu_alpha",), "prelu")]
+
+
+def _enet_blocks():
+    """ENet's blocks in call order: (port name, kind, ReLU); kind "asym" is
+    an asymmetric RegularBottleneck."""
+    from cvssl_tpu_torch.models.enet import STAGE_NAMES
+    yield "downsample1_0", "down", False
+    for i in range(1, 5):
+        yield f"regular1_{i}", "regular", False
+    yield "downsample2_0", "down", False
+    for stage in (2, 3):
+        for i, kind in enumerate(STAGE_NAMES, 1):
+            yield (f"{kind}{stage}_{i}",
+                   "asym" if kind == "asymmetric" else "regular", False)
+    yield "upsample4_0", "up", True
+    yield "regular4_1", "regular", True
+    yield "regular4_2", "regular", True
+    yield "upsample5_0", "up", True
+    yield "regular5_1", "regular", True
+
+
+def _enet() -> List[Leaf]:
+    """ENet under the reference's block names: Flax's
+    ``InitialBlock_0``, ``DownsamplingBottleneck_{k}``,
+    ``RegularBottleneck_{k}`` and ``UpsamplingBottleneck_{k}`` in call
+    order; a block's ``Conv_{i}``/``BatchNorm_{i}``/``_Act_{i}`` are its
+    ``ext_conv{i+1}`` Sequential (an asymmetric block's ``Conv_1``/
+    ``Conv_2`` are ``ext_conv2.0``/``.3``), its last ``_Act`` is
+    ``out_activation``; an upsampling block's ``Conv_0``/``BatchNorm_0`` are
+    ``main_conv1``, ``ConvTranspose_0``/``BatchNorm_2`` ``ext_tconv1``/
+    ``ext_tconv1_bnorm``; the top-level ``ConvTranspose_0`` is
+    ``transposed_conv``. PReLU slopes (``_Act_{i}``'s scalar
+    ``prelu_alpha``) exist only in the encoder; the decoder's ReLU holds
+    none."""
+    p = ("InitialBlock_0",)
+    out = (_conv("initial_block.main_branch", p + ("Conv_0",), bias=False)
+           + _batch_norm("initial_block.batch_norm", p + ("BatchNorm_0",))
+           + _prelu("initial_block.out_activation", p + ("_Act_0",)))
+    count: Dict[str, int] = {}
+    for name, kind, relu in _enet_blocks():
+        typ = {"down": "DownsamplingBottleneck",
+               "up": "UpsamplingBottleneck"}.get(kind, "RegularBottleneck")
+        p = (f"{typ}_{count.get(typ, 0)}",)
+        count[typ] = count.get(typ, 0) + 1
+        if kind == "up":
+            parts = (("main_conv1.0", "main_conv1.1", "Conv_0"),
+                     ("ext_conv1.0", "ext_conv1.1", "Conv_1"),
+                     ("ext_tconv1", "ext_tconv1_bnorm", "ConvTranspose_0"),
+                     ("ext_conv2.0", "ext_conv2.1", "Conv_2"))
+            for i, (conv, bn, flax) in enumerate(parts):
+                out += (_conv(f"{name}.{conv}", p + (flax,), bias=False,
+                              kind="tkernel" if i == 2 else "kernel")
+                        + _batch_norm(f"{name}.{bn}",
+                                      p + (f"BatchNorm_{i}",)))
+            continue
+        # Sequential(conv, bn, act) at these offsets, one a Flax index
+        seqs = [("ext_conv1", 0), ("ext_conv2", 0)] + (
+            [("ext_conv2", 3)] if kind == "asym" else []) + [("ext_conv3", 0)]
+        for i, (seq, o) in enumerate(seqs):
+            out += (_conv(f"{name}.{seq}.{o}", p + (f"Conv_{i}",), bias=False)
+                    + _batch_norm(f"{name}.{seq}.{o + 1}",
+                                  p + (f"BatchNorm_{i}",)))
+            if not relu:
+                out += _prelu(f"{name}.{seq}.{o + 2}", p + (f"_Act_{i}",))
+        if not relu:
+            out += _prelu(f"{name}.out_activation",
+                          p + (f"_Act_{len(seqs)}",))
+    return out + _conv("transposed_conv", ("ConvTranspose_0",), bias=False,
+                       kind="tkernel")
+
+
+def _effi_encoder(port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    """EfficientNet-B3 under lukemelas' names: ``Conv_0``/``BatchNorm_0``
+    are ``_conv_stem``/``_bn0``, ``MBConv_{b}`` is ``_blocks.{b}`` (its
+    convs in call order: ``_expand_conv`` where the stage expands,
+    ``_depthwise_conv``, ``_se_reduce``, ``_se_expand``, ``_project_conv``;
+    its norms ``_bn0`` (expanding), ``_bn1``, ``_bn2``)."""
+    from cvssl_tpu_torch.models.efficientunet import (B0_STAGES,
+                                                      round_repeats)
+    out = (_conv(f"{port}._conv_stem", path + ("Conv_0",), bias=False)
+           + _batch_norm(f"{port}._bn0", path + ("BatchNorm_0",)))
+    b = 0
+    for t, *_, r in B0_STAGES:
+        for _ in range(round_repeats(r)):
+            blk, p = f"{port}._blocks.{b}", path + (f"MBConv_{b}",)
+            convs = (["_expand_conv"] if t != 1 else []) + [
+                "_depthwise_conv", "_se_reduce", "_se_expand",
+                "_project_conv"]
+            norms = (["_bn0"] if t != 1 else []) + ["_bn1", "_bn2"]
+            for i, c in enumerate(convs):
+                out += _conv(f"{blk}.{c}", p + (f"Conv_{i}",),
+                             bias=c.startswith("_se"))
+            for i, n in enumerate(norms):
+                out += _batch_norm(f"{blk}.{n}", p + (f"BatchNorm_{i}",))
+            b += 1
+    return out
+
+
+def _effiunet() -> List[Leaf]:
+    """EffiUNet: ``EfficientNetEncoder_0`` is ``encoder``
+    (:func:`_effi_encoder`), ``DecoderBlock_{i}``'s ``Conv_{j}``/
+    ``BatchNorm_{j}`` are ``decoder.blocks.{i}.conv{j+1}.0``/``.1``, the
+    top-level ``Conv_0`` is ``classifier``."""
+    out = _effi_encoder("encoder", ("EfficientNetEncoder_0",))
+    for i in range(5):
+        for j in range(2):
+            port, p = f"decoder.blocks.{i}.conv{j + 1}", (f"DecoderBlock_{i}",)
+            out += (_conv(f"{port}.0", p + (f"Conv_{j}",), bias=False)
+                    + _batch_norm(f"{port}.1", p + (f"BatchNorm_{j}",)))
+    return out + _conv("classifier", ("Conv_0",))
+
+
+def _res2net(port: str, path: Tuple[str, ...], layers: Sequence[int]
+             ) -> List[Leaf]:
+    """Res2Net v1b (stem and ``layers``) under its own names, the keys
+    ``cvssl_tpu/models/cnn_checkpoint.py::convert_res2net_encoder`` reads:
+    ``Conv_0..2``/``BatchNorm_0..2`` are ``conv1.0``/``conv1.1``,
+    ``conv1.3``/``conv1.4``, ``conv1.6``/``bn1``; ``Bottle2neck_{k}``
+    (numbered across the layers) is ``layer{i}.{b}``: ``Conv_0`` ``conv1``,
+    ``Conv_{1..3}`` ``convs.{0..2}``, ``Conv_4`` ``conv3``, ``Conv_5`` (a
+    layer's first block) ``downsample.1``, each with its norm."""
+    out = []
+    for i, (conv, bn) in enumerate((("conv1.0", "conv1.1"),
+                                    ("conv1.3", "conv1.4"),
+                                    ("conv1.6", "bn1"))):
+        out += (_conv(f"{port}{conv}", path + (f"Conv_{i}",), bias=False)
+                + _batch_norm(f"{port}{bn}", path + (f"BatchNorm_{i}",)))
+    k = 0
+    for li, blocks in enumerate(layers, 1):
+        for b in range(blocks):
+            t, p = f"{port}layer{li}.{b}", path + (f"Bottle2neck_{k}",)
+            names = [("conv1", "bn1")] + [(f"convs.{j}", f"bns.{j}")
+                                          for j in range(3)]
+            names.append(("conv3", "bn3"))
+            if b == 0:
+                names.append(("downsample.1", "downsample.2"))
+            for i, (conv, bn) in enumerate(names):
+                out += (_conv(f"{t}.{conv}", p + (f"Conv_{i}",), bias=False)
+                        + _batch_norm(f"{t}.{bn}", p + (f"BatchNorm_{i}",)))
+            k += 1
+    return out
+
+
+def _preunet(layers: Sequence[int]) -> List[Leaf]:
+    """PreUNet: ``Res2NetEncoder_0`` is ``encoder`` (:func:`_res2net`),
+    ``_ConvBlock_{k}``'s ``Conv_0``/``BatchNorm_0``/``Conv_1``/
+    ``BatchNorm_1`` are ``decoder{k+1}.0``/``.1``/``.3``/``.4``, the
+    top-level ``Conv_0`` is ``out_conv``."""
+    out = _res2net("encoder.", ("Res2NetEncoder_0",), layers)
+    for k in range(6):
+        p = (f"_ConvBlock_{k}",)
+        for j, (c, n) in enumerate(((0, 1), (3, 4))):
+            out += (_conv(f"decoder{k + 1}.{c}", p + (f"Conv_{j}",))
+                    + _batch_norm(f"decoder{k + 1}.{n}",
+                                  p + (f"BatchNorm_{j}",)))
+    return out + _conv("out_conv", ("Conv_0",))
+
+
+def res2net_layers(tree) -> Tuple[int, ...]:
+    """The blocks of each Res2Net layer, read off a Flax tree (PreUNet's or
+    its encoder's: a ``Bottle2neck`` with ``Conv_5`` opens a layer) or a
+    ``state_dict``'s names (``layer{i}.{b}.``)."""
+    tree = tree.get("Res2NetEncoder_0", tree)
+    if "Bottle2neck_0" in tree:
+        layers: List[int] = []
+        k = 0
+        while f"Bottle2neck_{k}" in tree:
+            if "Conv_5" in tree[f"Bottle2neck_{k}"]:
+                layers.append(0)
+            layers[-1] += 1
+            k += 1
+        return tuple(layers)
+    depth: Dict[int, int] = {}
+    for name in tree:
+        m = re.match(r"(?:encoder\.)?layer(\d+)\.(\d+)\.", name)
+        if m:
+            i, b = int(m.group(1)), int(m.group(2))
+            depth[i] = max(depth.get(i, 0), b + 1)
+    return tuple(depth[i] for i in sorted(depth))
+
+
 def _pooled_side(n_in: int, channels: int) -> int:
     side = int(round((n_in // channels) ** 0.5))
     if side * side * channels != n_in:
@@ -516,6 +718,16 @@ def leaves(net_type: str, depths: Sequence[int] = (2, 2, 2, 2),
         return _attention_unet()
     if net_type == "nnUNet":
         return _nnunet(*layout)
+    if net_type == "pnet":
+        return _pnet()
+    if net_type == "enet":
+        return _enet()
+    if net_type == "efficient_unet":
+        return _effiunet()
+    if net_type == "preunet":
+        return _preunet(depths)
+    if net_type == "res2net_encoder":
+        return _res2net("", (), depths)
     if net_type == "discriminator":
         return _discriminator()
     if net_type == "discriminator_3d":
@@ -577,6 +789,8 @@ def _leaves_of(net_type: str, tree: Mapping) -> List[Leaf]:
         return leaves(net_type, layout=nnunet_layout(tree))
     if net_type in ("unetr", "swinunetr"):
         return leaves(net_type, vit3d_layout(tree))
+    if net_type in ("preunet", "res2net_encoder"):
+        return leaves(net_type, res2net_layers(tree))
     if net_type == "vnet" and not (
             "block_one.conv.1.running_mean" in tree
             or "BatchNorm_0" in tree.get("ConvStage_0", {}).get("_Norm_0",
@@ -600,6 +814,8 @@ def state_dict_from_flax(net_type: str, params: Mapping,
             v = torch_kernel(v, kind)
         elif kind == "dense":
             v = v.T
+        elif kind == "prelu":                  # () -> nn.PReLU's (1,)
+            v = v.reshape(1)
         elif kind.startswith("dense:"):        # (h*w*c, out) -> (out, c*h*w)
             c = sd[kind[6:]].shape[0]
             s = _pooled_side(v.shape[0], c)
@@ -623,6 +839,8 @@ def flax_from_state_dict(net_type: str, state_dict: Mapping
             v = flax_kernel(v, kind)
         elif kind == "dense":
             v = v.T
+        elif kind == "prelu":
+            v = v.reshape(())
         elif kind.startswith("dense:"):        # (out, c*h*w) -> (h*w*c, out)
             c = state_dict[kind[6:]].shape[0]
             s = _pooled_side(v.shape[1], c)

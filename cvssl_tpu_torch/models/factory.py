@@ -1,21 +1,21 @@
 """Model registries (port of ``cvssl_tpu/models/factory.py``): in 2D the
-UNet family, the discriminator, SwinUnet, the contrastive heads and
-``nnUNet``; in 3D ``unet_3D``, ``unet_3D_dv_semi``, ``vnet``,
+UNet family, the discriminator, SwinUnet, the contrastive heads,
+``nnUNet``, ``enet``, ``pnet``, ``efficient_unet`` and ``preunet`` (JAX's
+2D list); in 3D ``unet_3D``, ``unet_3D_dv_semi``, ``vnet``,
 ``voxresnet``, ``attention_unet``, ``nnUNet``, the ViTs ``unetr`` and
 ``swinunetr`` (built for ``img_size``, which ``TrainConfig.model_kwargs``
-sets to the patch) and the discriminator.
-
-Not ported yet: the 2D nets ``enet``, ``pnet``, ``efficient_unet`` and
-``preunet``."""
+sets to the patch) and the discriminator."""
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from torch import nn
 
-from cvssl_tpu_torch.models import (attention_unet, discriminator, nnunet,
-                                    projector, swin_unet, swin_unetr, unet,
-                                    unet3d, unetr, vnet, voxresnet)
+from cvssl_tpu_torch.models import (attention_unet, discriminator,
+                                    efficientunet, enet, nnunet, pnet,
+                                    projector, resunet, swin_unet,
+                                    swin_unetr, unet, unet3d, unetr, vnet,
+                                    voxresnet)
 
 _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
     "unet": lambda in_chns, class_num, **kw: unet.UNet(
@@ -42,6 +42,15 @@ _REGISTRY_2D: Dict[str, Callable[..., nn.Module]] = {
         in_channels=class_num, **kw),
     # a true 2D configuration, as in JAX (the reference returns the 3D net)
     "nnUNet": lambda in_chns, class_num, **kw: nnunet.GenericUNet2D(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "enet": lambda in_chns, class_num, **kw: enet.ENet(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    "pnet": lambda in_chns, class_num, **kw: pnet.PNet2D(
+        in_chns=in_chns, num_classes=class_num, **kw),
+    # one or three input channels (one is tiled), sides % 32
+    "efficient_unet": lambda in_chns, class_num, **kw:
+        efficientunet.EffiUNet(in_chns=in_chns, num_classes=class_num, **kw),
+    "preunet": lambda in_chns, class_num, **kw: resunet.PreUNet(
         in_chns=in_chns, num_classes=class_num, **kw),
 }
 _REGISTRY_2D["ViT_Seg"] = _REGISTRY_2D["swin_unet"]
@@ -88,3 +97,11 @@ def net_factory_3d(net_type: str = "unet_3D", in_chns: int = 1,
             f"unknown 3D net {net_type!r}; available: {sorted(_REGISTRY_3D)}")
     return _REGISTRY_3D[net_type](in_chns=in_chns, class_num=class_num,
                                   **kwargs)
+
+
+def available_2d():
+    return sorted(_REGISTRY_2D)
+
+
+def available_3d():
+    return sorted(_REGISTRY_3D)

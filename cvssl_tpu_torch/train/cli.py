@@ -66,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--s2d_levels", type=int, default=d.s2d_levels,
                    help="inert: TPU space-to-depth levels")
     p.add_argument("--pretrained_ckpt", type=str, default=None,
-                   help="local torch .pth with ImageNet encoder weights")
+                   help="local torch .pth with ImageNet weights: Res2Net-101 "
+                        "v1b (preunet), EfficientNet-B3 (efficient_unet) or "
+                        "Swin-tiny (swin_unet / ViT_Seg)")
     p.add_argument("--dim", type=int, default=2, choices=[2, 3])
     p.add_argument("--num_devices", type=int, default=None,
                    help="None or 1: one card so far")

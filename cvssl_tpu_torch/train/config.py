@@ -17,9 +17,10 @@ TPU are accepted and inert here:
 
 ``num_devices`` must be None or 1: the port trains on one card so far.
 ``fused_loss`` must be None or True: the fused CE+Dice kernel is always on.
-``pretrained_ckpt`` must be None: ``fit`` raises for it until the CNN
-encoder loader is ported (JAX's ``fit`` loads only CNN encoders; the Swin
-remap is ``models/swin_checkpoint.py::load_from``).
+``pretrained_ckpt``: a local ``.pth`` that ``Engine.init_state`` loads
+into each model it fits (``models/cnn_checkpoint.py``: Res2Net into
+``preunet``'s encoder, EfficientNet-B3 into ``efficient_unet``'s, Swin-tiny
+into SwinUnet), before the teachers are copied.
 """
 from __future__ import annotations
 
@@ -95,7 +96,7 @@ class TrainConfig:
     profile_dir: Optional[str] = None  # not ported yet: fit raises
     compile_cache: Optional[str] = "auto"  # inert (XLA compilation cache)
     vit_kwargs: Optional[dict] = None  # SwinUnet constructor overrides
-    pretrained_ckpt: Optional[str] = None
+    pretrained_ckpt: Optional[str] = None  # local .pth (cnn_checkpoint)
 
     def __post_init__(self):
         if self.num_devices not in (None, 1):

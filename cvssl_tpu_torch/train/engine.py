@@ -31,6 +31,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import logging
 import os
 import time
 from typing import Callable, Dict, Optional, Sequence
@@ -85,12 +86,16 @@ class Engine:
     # ------------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Models with random weights from ``seed`` (default ``cfg.seed``),
-        their teachers as copies, optimizers, and the step's generator."""
+        then ``cfg.pretrained_ckpt``'s where it fits
+        (:meth:`_load_pretrained`), their teachers as copies, optimizers,
+        and the step's generator."""
         seed = self.cfg.seed if seed is None else seed
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             models = self.method.build_models()
         models = {n: m.to(self.device).train() for n, m in models.items()}
+        if self.cfg.pretrained_ckpt:
+            self._load_pretrained(models)
         teachers = {}
         for name in self.method.teacher_names:
             teachers[name] = copy.deepcopy(models[name]).requires_grad_(False)
@@ -106,6 +111,18 @@ class Engine:
                           optimizers=optimizers,
                           teachers=teachers, generator=generator,
                           extra=self.method.init_extra())
+
+    def _load_pretrained(self, models: Dict[str, torch.nn.Module]):
+        """``cfg.pretrained_ckpt`` into each model it belongs to (JAX
+        ``engine.py:103-116``): before the teachers are copied and the
+        optimizers built, so a teacher starts from the same weights."""
+        from cvssl_tpu_torch.models import cnn_checkpoint as cc
+        path = self.cfg.pretrained_ckpt
+        sd = cc.load_torch_state_dict(path)
+        for name, model in models.items():
+            if cc.maybe_load_encoder(model, sd):
+                logging.getLogger(__name__).info(
+                    "loaded pretrained encoder into %s from %s", name, path)
 
     # ------------------------------------------------------------------
     # the step
@@ -409,7 +426,7 @@ CTA_HOOKS = ("create_transform", "on_epoch_start", "on_batch",
 
 def _check_ported(cfg: TrainConfig, method: Method):
     """``fit`` raises for what this port does not run yet, rather than
-    running something else."""
+    running something else, and for a missing ``pretrained_ckpt``."""
     if cfg.dim not in (2, 3):
         raise ValueError(f"dim={cfg.dim}: 2 or 3")
     if cfg.dim == 3 and method.transform == "cta":
@@ -430,9 +447,9 @@ def _check_ported(cfg: TrainConfig, method: Method):
         raise NotImplementedError("profile_dir: the step-window profiler "
                                   "is not ported yet")
     if cfg.pretrained_ckpt:
-        raise NotImplementedError(
-            f"pretrained_ckpt={cfg.pretrained_ckpt!r}: loading pretrained "
-            "weights (cnn_checkpoint / swin_checkpoint) is not ported yet")
+        # before anything is written; the engine loads it at init
+        from cvssl_tpu_torch.models.cnn_checkpoint import require_file
+        require_file(cfg.pretrained_ckpt)
 
 
 def fit(cfg: TrainConfig, engine: Optional[Engine] = None,

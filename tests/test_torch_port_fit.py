@@ -453,6 +453,15 @@ def test_fit_raises_for_what_is_not_ported(trees, tmp_path, change):
             fit(cfg, engine=engine, max_steps=1)
         assert not os.path.exists(cfg.snapshot_path())
         return
+    if change == "pretrained":
+        # the loader is ported (cnn_checkpoint): a missing file raises, as
+        # in JAX, before anything is written
+        with pytest.raises(FileNotFoundError,
+                           match="pretrained checkpoint not found"):
+            fit(cfg, engine=TEngine(cfg, method=_NarrowMT(cfg),
+                                    device="cpu"), max_steps=1)
+        assert not os.path.exists(cfg.snapshot_path())
+        return
     method = _NarrowMT(cfg)
     if change == "transform":
         # the host CTAugment path, on a method without its hooks
@@ -484,14 +493,16 @@ def test_cli_has_the_jax_flags():
 
 def test_cli_pretrained_ckpt_raises_before_any_step(trees, tmp_path,
                                                    monkeypatch):
-    """JAX loads ``--pretrained_ckpt`` (and fails on a missing file); the
-    port has no loader yet, so it raises rather than train from a random
-    init: before any step, with nothing written under the snapshot root."""
+    """``--pretrained_ckpt`` naming a missing file raises, as in JAX,
+    rather than train from a random init: before any step, with nothing
+    written under the snapshot root (the loading itself is
+    ``tests/test_torch_port_pretrained.py``'s)."""
     _, troot = trees
     steps = []
     monkeypatch.setattr(TEngine, "train_steps",
                         lambda self, *a, **k: steps.append(1))
-    with pytest.raises(NotImplementedError, match="pretrained_ckpt"):
+    with pytest.raises(FileNotFoundError,
+                       match="pretrained checkpoint not found"):
         tcli.main(["--root_path", troot, "--exp", "cli", "--method",
                    "supervised", "--max_iterations", "2", "--batch_size",
                    "2", "--labeled_slices", "8", "--patch_size", "32", "32",

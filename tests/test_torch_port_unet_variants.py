@@ -174,8 +174,10 @@ def test_full_width_parameter_counts_match_flax(net_type):
 def test_factory_names_match_jax():
     for name in FULL_WIDTH:
         jfactory.net_factory(name, 1, 4)
+    # the zoo's ENet is registered too; a name neither package has is not
+    net_factory("enet")
     with pytest.raises(ValueError, match="unknown 2D net"):
-        net_factory("enet")
+        net_factory("no_such_net")
 
 
 @pytest.mark.parametrize("name,kwargs", [
