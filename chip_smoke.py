@@ -27,7 +27,10 @@ the run with a non-zero exit:
    (bf16), from a device-resident store of 1312 synthetic ACDC-shaped
    slices; 10 steps from step 0 and 10 from step 1000 with every kernel's
    launch count rising by exactly one per step; then slices/s and peak
-   memory, a short profile of where the step's device time goes, and a
+   memory, one more step's FLOPs (``utils/mfu.py::per_step_flops``,
+   ``FlopCounterMode``) and its MFU against the card's dense bf16 peak at
+   the timed step time, a short profile of where the step's device time
+   goes, and a
    ``torch.profiler`` trace of kernel #1 that must count one device kernel
    per forward and per backward call (no profiler runs before the step
    loop's throughput: a session slows later launches on the host);
@@ -137,13 +140,15 @@ the run with a non-zero exit:
    "error" where phase 5 ran so, kernel #1 once each way a step, exactly
    one teacher pass over the (T + 1) * u = 18 volumes a step (counted),
    the teacher moved, the masked consistency live (output conv x8), then
-   volumes/s over 30 steps, peak memory and a one-step profile; the same
+   volumes/s over 30 steps, peak memory, one more step's FLOPs and MFU
+   (as phase 3's) and a one-step profile; the same
    for supervised, mean_teacher, cps, ict, adversarial and
    exam_student_teacher (FC3DDiscriminator, 11,024,386 parameters; kernel
    #1 launched 1, 1, 2, 1, 1, 1 times a step, none in the discriminator
    phase), 5 + 5 checked steps and 10 timed each; UNet3DDeepSup's f32
    eval heads on the card against the CPU; the sliding window on 5
-   volumes of 140 x 180 x 180 (18 windows each, pipelined; volumes/s), and
+   volumes of 140 x 180 x 180 (18 windows each, pipelined; volumes/s, and
+   the MFU of a volume's ``last_flops`` at that rate), and
    a net that thresholds each voxel through it, exactly; a UAMT-3D
    ``fit`` of 100 iterations (one validation of 4 volumes of mixed shapes,
    one under the patch; one checkpoint), then a resume to 150: files, the
@@ -214,9 +219,20 @@ the run with a non-zero exit:
    table, the exports present). Each part's seconds are printed.
    ``--zoo2d-only`` builds the CE+Dice source alone and runs only this
    phase;
-12. one JSON line of the kernels (kernel #1's with its launches in each
+12. the step-window profiler on the main path, last, since a profiler
+   session slows every later launch on the host: ``fit`` at config 2 on
+   the store for 25 iterations with ``profile_dir`` in a temporary
+   directory (no validation, no checkpoint), one ``*.pt.trace.json``
+   written there, kernel #1's forward and backward device kernels in it
+   once each for every step of the window (steps 11-20), the window's
+   device time a step from the trace and the fit's slices/s (profiled,
+   not a throughput); then ``measure_fp_bp_time`` on the config-2 UNet.
+   ``--profile-only`` builds the CE+Dice source alone and runs only this
+   phase;
+13. one JSON line of the kernels (kernel #1's with its launches in each
    method's run of phases 5, 5b, 8, 9, 10 and 11 and in the
-   contrastive_consistency, UAMT-3D, UNETR and pretrained ``fit``s; phase
+   contrastive_consistency, UAMT-3D, UNETR, pretrained and profiled
+   (``mean_teacher_profiled_fit``) ``fit``s; phase
    5b's
    contrastive_cross as ``contrastive_cross_vit``, config 3's methods as
    ``supervised_swin`` and ``uamt_swin``, phase 8's with ``_3d``, phase
@@ -407,6 +423,11 @@ ZOO_2D = ("enet", "pnet", "efficient_unet", "preunet")
 MODEL_PARAMS.update({"enet": 349_284, "pnet": 486_596,
                      "efficient_unet": 12_566_060, "preunet": 55_581_692})
 ZOO2D_FIT_STEPS, ZOO2D_VAL_VOLUMES, ZOO2D_TEST_VOLUMES = 20, 2, 4
+
+# phase 12: the profiled fit at config 2's recipe, past the profiler's
+# window of steps 10-20 (``utils/profiler.py::StepWindowProfiler``'s
+# default, the one fit builds); no validation and no checkpoint in its run
+PROFILE_FIT_STEPS = 25
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -883,6 +904,9 @@ def run_main_path(device, card):
     print(f"main path throughput: {sps:.2f} slices/s "
           f"({dt / MEASURE_STEPS * 1e3:.2f} ms/step over {MEASURE_STEPS} "
           f"steps), peak memory {peak / 2 ** 30:.3f} GiB, on {card}")
+    count_step_flops("main path (mean_teacher, config 2)",
+                     lambda: engine.train_steps(state, [next(stream)]),
+                     dt / MEASURE_STEPS, card)
     profile_steps(engine, state, stream, dt / MEASURE_STEPS)
     return engine, state, store, launches, sps
 
@@ -928,6 +952,39 @@ def profile_steps(engine, state, stream, step_s, steps=3, top=15,
         print(f"  {e.self_device_time_total / steps / 1e3:8.3f} ms/step "
               f"{e.count // steps:5d}x  {e.key[:90]}")
     return total_us / steps / 1e3
+
+
+def report_mfu(what, flops, step_s, card):
+    """Print a step's (or a volume's) FLOPs, wall time, FLOP/s and MFU
+    against the card's dense bf16 peak (``utils/mfu.py``), with the card's
+    name and power limit. Returns the numbers."""
+    from cvssl_tpu_torch.utils.mfu import mfu, peak_flops
+
+    u = mfu(flops, step_s)
+    peak = peak_flops()
+    print(f"mfu {what}: flops_per_step {flops:.0f}, step {step_s * 1e3:.3f}"
+          f" ms, {flops / step_s / 1e12:.3f} TFLOP/s achieved, mfu "
+          f"{'none' if u is None else f'{u:.6f}'} of the dense bf16 peak "
+          f"{'none' if peak is None else f'{peak / 1e12:.0f} TFLOP/s'}; "
+          f"FlopCounterMode's count (no ctypes kernel), on {card}")
+    return {"flops_per_step": flops, "step_s": step_s, "mfu": u}
+
+
+def count_step_flops(what, step, step_s, card):
+    """FLOPs of one more call of ``step`` (``utils/mfu.py::
+    per_step_flops``: it runs, and its result is dropped), outside every
+    timed window and sync debug window, then :func:`report_mfu` at the
+    step time ``step_s`` measured before it."""
+    import torch
+    from cvssl_tpu_torch.utils.mfu import per_step_flops
+
+    t0 = time.perf_counter()
+    flops = per_step_flops(step)
+    torch.cuda.synchronize()
+    if not flops:
+        raise SystemExit(f"{what}: no FLOPs counted")
+    print(f"{what}: one step counted in {time.perf_counter() - t0:.2f} s")
+    return report_mfu(what, flops, step_s, card)
 
 
 def two_stream(seed, batch=BATCH, labeled_bs=LABELED_BS):
@@ -1044,7 +1101,7 @@ def run_other_methods(device, card, store):
 
 def drive_method(engine, state, stream, per_step, strict, card, batch,
                  checked=METHOD_STEPS, timed=MEASURE_STEPS, profiled=3,
-                 top=5, batches=None):
+                 top=5, batches=None, count=False):
     """One method at full width: its models' parameter counts; ``checked``
     steps from step 0 and as many from step 1000 (under sync debug mode
     "error" if ``strict``), kernel #1 launched ``per_step`` times a step,
@@ -1053,10 +1110,11 @@ def drive_method(engine, state, stream, per_step, strict, card, batch,
     through their ``_pseudo_*`` terms and recomputed here, see
     :func:`check_pseudo`); the teachers, or else every model, and the
     discriminators moved; then samples/s and peak memory over ``timed``
-    steps and a profile of ``profiled`` steps (its ``top`` kernels). The
-    steps take index batches of ``stream`` from the engine's store, or
-    with ``batches`` the host pipeline's pinned batches. Returns the
-    method's numbers."""
+    steps, with ``count`` one more step's FLOPs and MFU
+    (:func:`count_step_flops`), and a profile of ``profiled`` steps (its
+    ``top`` kernels). The steps take index batches of ``stream`` from the
+    engine's store, or with ``batches`` the host pipeline's pinned
+    batches. Returns the method's numbers."""
     import torch
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
@@ -1188,6 +1246,9 @@ def drive_method(engine, state, stream, per_step, strict, card, batch,
           f"{r['slices_per_s']:.2f} {unit}/s ({r['ms_per_step']:.2f} "
           f"ms/step over {timed} steps of {batch}), peak memory "
           f"{r['peak_gib']:.3f} GiB, on {card}")
+    if count:
+        r.update(count_step_flops(f"method {method}", lambda: steps(1),
+                                  dt / timed, card))
     r["busy_ms_per_step"] = profile_steps(
         engine, state, stream, dt / timed, steps=profiled, top=top,
         step_fn=None if batches is None else lambda: steps(1))
@@ -2265,7 +2326,7 @@ def run_3d_methods(card, strict, store):
         results["uamt_3d"] = drive_method(
             engine, state, stream, 1, strict, card, BATCH_3D,
             checked=UAMT_3D_CHECKED, timed=UAMT_3D_TIMED, profiled=1,
-            top=15)
+            top=15, count=True)
     finally:
         stop()
     u = BATCH_3D - LABELED_BS_3D
@@ -2273,7 +2334,7 @@ def run_3d_methods(card, strict, store):
     if not passes or set(passes) != {want}:
         raise SystemExit(f"uamt 3D: teacher passes {sorted(set(passes))}, "
                          f"not one {want} a step")
-    steps = 2 * UAMT_3D_CHECKED + UAMT_3D_TIMED + 1
+    steps = 2 * UAMT_3D_CHECKED + UAMT_3D_TIMED + 2   # + counted, profiled
     if len(passes) != steps:
         raise SystemExit(f"uamt 3D: {len(passes)} teacher passes in "
                          f"{steps} steps")
@@ -2363,6 +2424,8 @@ def run_sliding_window(device, card):
                 pending()
             pending = nxt
         rates.append(SW_VOLUMES / (time.perf_counter() - t0))
+    report_mfu(f"sliding window (a volume of {BRATS_VOLUME}, {n_win} "
+               f"windows)", ev.last_flops(), 1.0 / rates[1], card)
 
     def threshold(x):
         hi = (x > 0.5).float()
@@ -3467,6 +3530,79 @@ def run_zoo2d(card, strict):
     return methods
 
 
+def run_profiled_fit(device, card):
+    """Phase 12: ``fit`` at config 2 on the store with ``profile_dir`` in a
+    temporary directory, :data:`PROFILE_FIT_STEPS` iterations; one trace
+    written under ``profile_dir``, holding kernel #1's forward and
+    backward device kernels once each for every step of the window
+    (start, stop]; the window's device time a step read from the trace
+    and the fit's slices/s, profiled; then ``measure_fp_bp_time`` on the
+    config-2 UNet (batch 24 at 256^2, bf16 autocast). Runs last: a
+    profiler session slows every later launch on the host. Returns
+    kernel #1's launches in the fit."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine, fit
+    from cvssl_tpu_torch.utils.profiler import (StepWindowProfiler,
+                                                measure_fp_bp_time)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    prof_dir = os.path.join(tmp, "profile")
+    cfg = method_config("mean_teacher", snapshot_root=tmp,
+                        exp="ACDC/profile", profile_dir=prof_dir)
+    if cfg.val_every <= PROFILE_FIT_STEPS or \
+            cfg.ckpt_every <= PROFILE_FIT_STEPS:
+        raise SystemExit("the profiled fit must validate and checkpoint "
+                         "nowhere in its run")
+    window = StepWindowProfiler(prof_dir)
+    engine = Engine(cfg)
+    fcd.reset_launches()
+    res = fit(cfg, engine=engine, max_steps=PROFILE_FIT_STEPS,
+              data=(SyntheticACDC(), two_stream(cfg.seed),
+                    blob_volumes(n=1)))
+    launches = dict(fcd.LAUNCHES)
+    if res["iterations"] != PROFILE_FIT_STEPS or any(
+            v != PROFILE_FIT_STEPS for v in launches.values()):
+        raise SystemExit(f"profiled fit: {res['iterations']} iterations, "
+                         f"launches {launches}")
+    traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise SystemExit(f"profiled fit: traces {traces} in {prof_dir}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    steps = window.stop - window.start
+    counts = {k: sum(f"{k}_kernel" in e.get("name", "") for e in kernels)
+              for k in launches}
+    if any(n != steps for n in counts.values()):
+        raise SystemExit(f"profiled fit: kernel #1's device kernels "
+                         f"{counts} in the trace of steps {window.start}-"
+                         f"{window.stop}, not {steps} each")
+    busy_ms = sum(e["dur"] for e in kernels) / 1e3
+    span_ms = (max(e["ts"] + e["dur"] for e in kernels)
+               - min(e["ts"] for e in kernels)) / 1e3
+    print(f"profiled fit: {PROFILE_FIT_STEPS} iterations, launches "
+          f"{launches}; trace {os.path.basename(traces[0])} "
+          f"({os.path.getsize(traces[0])} bytes, {len(kernels)} device "
+          f"kernels): kernel #1 {counts} in steps {window.start + 1}-"
+          f"{window.stop}; device busy {busy_ms / steps:.3f} ms/step, first "
+          f"to last kernel {span_ms / steps:.3f} ms/step; "
+          f"{res['slices_per_sec']:.2f} slices/s profiled (not a "
+          f"throughput), on {card}")
+
+    model = res["state"].models["model"]
+    x = torch.randn((BATCH, 1, PATCH, PATCH), device=device,
+                    generator=torch.Generator(device=device).manual_seed(12))
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        fp, bp = measure_fp_bp_time(model, x)
+    print(f"measure_fp_bp_time: UNet at ({BATCH}, 1, {PATCH}, {PATCH}) "
+          f"bf16 autocast, eval mode: forward {fp * 1e3:.3f} ms, forward + "
+          f"backward {bp * 1e3:.3f} ms (profiler hooks on), on {card}")
+    print(f"phase 12 (profiled fit): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3496,6 +3632,11 @@ def main(argv=None) -> int:
         help="build only csrc/fused_ce_dice.cu and run phase 11 (the 2D "
         "zoo, its checked steps under sync debug mode \"error\", and the "
         "--pretrained_ckpt fits), then stop without the result line")
+    parser.add_argument(
+        "--profile-only", dest="only_profile", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 12 (fit with "
+        "profile_dir, kernel #1 counted in its trace, measure_fp_bp_time), "
+        "then stop without the result line")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3517,7 +3658,7 @@ def main(argv=None) -> int:
         except Exception as e:  # re-raised in the main thread below
             built[name] = e
     sources = ([] if (args.only_3d or args.only_9 or args.only_vit3d
-                      or args.only_zoo2d)
+                      or args.only_zoo2d or args.only_profile)
                else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
@@ -3579,6 +3720,11 @@ def main(argv=None) -> int:
         print("chip_smoke --zoo2d-only: phase 11 passed; no result line "
               "(the other phases did not run)")
         return 0
+    if args.only_profile:
+        run_profiled_fit(device, smi)
+        print("chip_smoke --profile-only: phase 12 passed; no result line "
+              "(the other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -3606,6 +3752,9 @@ def main(argv=None) -> int:
     r10 = run_vit3d(device, smi, strict, mem_bw, f32_rate)
     methods.update(r10["methods"])
     methods.update(run_zoo2d(smi, strict))
+    # last: the profiler's session slows every later launch
+    methods["mean_teacher_profiled_fit"] = {
+        "launches": run_profiled_fit(device, smi)}
 
     source = "cvssl_tpu_torch/csrc/fused_ce_dice.cu"
     replaces = {"ce_dice_fwd": "cvssl_tpu/ops/pallas_kernels.py:65",

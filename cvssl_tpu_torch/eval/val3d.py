@@ -129,6 +129,7 @@ class SlidingWindowEvaluator:
         self._weight = None if not gaussian else torch.from_numpy(
             gaussian_importance_map(self.patch_size)).to(self.device)
         self._cnt_cache = {}
+        self._last = None        # (predict_args, windows) of the last volume
 
     def plan(self, shape):
         """The reference's extent S = max(s, patch) per axis, the raw
@@ -178,6 +179,7 @@ class SlidingWindowEvaluator:
         score = torch.zeros((self.num_classes,) + extent,
                             dtype=torch.float32, device=self.device)
         windows = list(self._windows(corners))
+        self._last = (predict_args, len(windows))
         for i in range(0, len(windows), self.patch_batch):
             batch = windows[i:i + self.patch_batch]
             x = torch.stack([volume[(slice(None),) + w] for w in batch])
@@ -203,6 +205,35 @@ class SlidingWindowEvaluator:
     def predict_volume(self, image, predict_args=()) -> np.ndarray:
         """The label map of one (D, H, W) volume."""
         return self.predict_volume_async(image, predict_args)()
+
+    def last_flops(self):
+        """Model FLOPs of the last volume's sliding window: the count
+        (``utils/mfu.py::count_flops``) of one forward of a window batch of
+        ``(patch_batch, 1, *patch)`` times the full batches, plus one of
+        the last, smaller batch where there is one (JAX fills that batch to
+        ``patch_batch``). The score and count maps' adds are not counted.
+        Runs the forwards once more. None before any volume. JAX:
+        ``SlidingWindowEvaluator.last_flops``."""
+        if self._last is None:
+            return None
+        from cvssl_tpu_torch.utils.mfu import count_flops
+        args, windows = self._last
+
+        def batch_flops(b):
+            x = torch.zeros((b, 1) + self.patch_size, dtype=torch.float32,
+                            device=self.device)
+            with torch.no_grad():
+                return count_flops(self._predict, args, x)
+
+        full, rest = divmod(windows, self.patch_batch)
+        total = 0.0
+        for n, b in ((full, self.patch_batch), (int(rest > 0), rest)):
+            if n:
+                f = batch_flops(b)
+                if f is None:
+                    return None
+                total += n * f
+        return total
 
 
 def tiled_predict_2d(predict_fn, image: np.ndarray, patch_size,

@@ -23,3 +23,11 @@ def ema_update(ema: Sequence[torch.Tensor], new: Sequence[torch.Tensor],
     ema = list(ema)
     torch._foreach_mul_(ema, decay)
     torch._foreach_add_(ema, list(new), alpha=1.0 - decay)
+
+
+def mean_teacher_update(ema: Sequence[torch.Tensor],
+                        new: Sequence[torch.Tensor], step: int,
+                        alpha: float = 0.99) -> None:
+    """:func:`ema_update` at :func:`ema_decay_schedule`'s decay, in place.
+    JAX: ``ema.mean_teacher_update``."""
+    ema_update(ema, new, ema_decay_schedule(step, alpha))

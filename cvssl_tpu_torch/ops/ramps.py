@@ -18,13 +18,23 @@ def sigmoid_rampup(current, rampup_length) -> float:
 
 
 def consistency_weight(step: int, consistency: float = 0.1,
-                       consistency_rampup: float = 200.0) -> float:
-    """``consistency * sigmoid_rampup(step // 150, rampup)``, with the
-    reference's integer-divide staircase. JAX: ``ramps.consistency_weight``
-    (``ramp="sigmoid"``)."""
-    return float(np.float32(consistency)
-                 * np.float32(sigmoid_rampup(int(step) // 150,
-                                             consistency_rampup)))
+                       consistency_rampup: float = 200.0,
+                       ramp: str = "sigmoid") -> float:
+    """``consistency * ramp(step // 150, rampup)``, with the reference's
+    integer-divide staircase; ``ramp`` is "sigmoid"
+    (:func:`sigmoid_rampup`), "linear" (:func:`linear_rampup`) or
+    "temporal" (:func:`ramp_up_function` at ``int(rampup)``). JAX:
+    ``ramps.consistency_weight``."""
+    t = int(step) // 150
+    if ramp == "sigmoid":
+        r = sigmoid_rampup(t, consistency_rampup)
+    elif ramp == "linear":
+        r = linear_rampup(t, consistency_rampup)
+    elif ramp == "temporal":
+        r = ramp_up_function(t, int(consistency_rampup))
+    else:
+        raise ValueError(f"unknown ramp {ramp!r}")
+    return float(np.float32(consistency) * np.float32(r))
 
 
 def linear_rampup(current, rampup_length) -> float:
@@ -46,3 +56,11 @@ def ramp_up_function(epoch, epoch_with_max_rampup: int = 80) -> float:
     p = np.float32(1.0) - (np.maximum(np.float32(0.0), epoch)
                            / np.float32(epoch_with_max_rampup))
     return float(np.exp(np.float32(-5.0) * p * p))
+
+
+def cosine_rampdown(current, rampdown_length) -> float:
+    """Cosine 1 -> 0 rampdown 0.5 (cos(pi t / length) + 1), in float32.
+    JAX: ``ramps.cosine_rampdown``."""
+    f32 = np.float32
+    return float(f32(0.5) * (np.cos(f32(np.pi) * f32(current)
+                                    / f32(rampdown_length)) + f32(1.0)))

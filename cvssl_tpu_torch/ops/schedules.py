@@ -39,6 +39,16 @@ def two_phase_poly_lr(base_lr: float, max_iterations: int,
     return schedule
 
 
+def two_phase_lr(base_lr: float, max_iterations: int,
+                 drop_to: float = 1e-4) -> Callable[[int], float]:
+    """``base_lr`` until half the iterations, then ``drop_to``, in float32.
+    JAX: ``schedules.two_phase_lr``."""
+    def schedule(step: int) -> float:
+        return float(np.float32(base_lr if step < max_iterations // 2
+                                else drop_to))
+    return schedule
+
+
 class ReferenceSGD(torch.optim.SGD):
     """SGD(momentum=0.9, weight_decay=1e-4) whose learning rate follows
     ``poly_lr`` of ``count``, the number of updates applied so far (optax's
@@ -95,3 +105,85 @@ class DiscriminatorAdam(torch.optim.Adam):
         loss = super().step(closure)
         self.count += 1
         return loss
+
+
+# ---------------------------------------------------------------------------
+# The reference's ``networks_other.py::get_scheduler`` family (:95-139),
+# which no trainer calls: epoch -> lr functions in float32, as JAX's
+# ---------------------------------------------------------------------------
+
+def lambda_linear_lr(base_lr: float, niter: int, niter_decay: int,
+                     epoch_count: int = 1) -> Callable[[int], float]:
+    """'lambda': flat for ``niter`` epochs, then linear to 0 over
+    ``niter_decay``. JAX: ``schedules.lambda_linear_lr``."""
+    f32 = np.float32
+
+    def schedule(epoch: int) -> float:
+        e = f32(epoch)
+        frac = f32(1.0) - np.maximum(
+            f32(0.0), e + f32(1 + epoch_count - niter)) \
+            / f32(niter_decay + 1)
+        return float(f32(base_lr) * frac)
+    return schedule
+
+
+def step_lr(base_lr: float, step_size: int,
+            gamma: float = 0.5) -> Callable[[int], float]:
+    """'step' (gamma 0.5) and 'step2' (gamma 0.1): ``base_lr * gamma **
+    (epoch // step_size)``. JAX: ``schedules.step_lr``."""
+    def schedule(epoch: int) -> float:
+        return float(np.float32(base_lr) * np.float32(gamma)
+                     ** np.float32(int(epoch) // step_size))
+    return schedule
+
+
+def step_warmstart_lr(base_lr: float,
+                      variant: int = 1) -> Callable[[int], float]:
+    """'step_warmstart' (variant 1: drops at epochs 100 and 200) and
+    'step_warmstart2' (variant 2: at 50 and 100): x0.1 for the first 5
+    epochs, then x1, x0.1 and x0.01. JAX: ``schedules.step_warmstart_lr``.
+    """
+    hi = (100, 200) if variant == 1 else (50, 100)
+
+    def schedule(epoch: int) -> float:
+        scale = 0.1 if epoch < 5 else 1.0 if epoch < hi[0] else \
+            0.1 if epoch < hi[1] else 0.01
+        return float(np.float32(base_lr) * np.float32(scale))
+    return schedule
+
+
+class ReduceLROnPlateau:
+    """'plateau': a host controller that scales the LR by ``factor`` once
+    the monitored value has not improved by ``threshold`` (relative) for
+    more than ``patience`` evaluations. Call ``update(metric)`` after each
+    evaluation and multiply the base schedule by ``scale``. JAX:
+    ``schedules.ReduceLROnPlateau``."""
+
+    def __init__(self, factor: float = 0.1, patience: int = 5,
+                 threshold: float = 0.01, mode: str = "min"):
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode {mode!r}: 'min' or 'max'")
+        self.factor, self.patience, self.threshold = (factor, patience,
+                                                      threshold)
+        self.mode = mode
+        self.best = None
+        self.bad_epochs = 0
+        self.scale = 1.0
+
+    def _improved(self, metric: float) -> bool:
+        if self.best is None:
+            return True
+        if self.mode == "min":
+            return metric < self.best * (1.0 - self.threshold)
+        return metric > self.best * (1.0 + self.threshold)
+
+    def update(self, metric: float) -> float:
+        if self._improved(metric):
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.scale *= self.factor
+                self.bad_epochs = 0
+        return self.scale

@@ -93,7 +93,7 @@ class TrainConfig:
     dim: int = 2                       # 2 or 3 (dataset/model family)
     num_devices: Optional[int] = None  # None or 1
     dcn_slices: Optional[int] = None   # inert (TPU mesh folding)
-    profile_dir: Optional[str] = None  # not ported yet: fit raises
+    profile_dir: Optional[str] = None  # fit traces steps 10-20 there
     compile_cache: Optional[str] = "auto"  # inert (XLA compilation cache)
     vit_kwargs: Optional[dict] = None  # SwinUnet constructor overrides
     pretrained_ckpt: Optional[str] = None  # local .pth (cnn_checkpoint)

@@ -55,6 +55,7 @@ from cvssl_tpu_torch.train.methods.base import Method, get_method
 from cvssl_tpu_torch.train.state import StepCtx, TrainState
 from cvssl_tpu_torch.utils import checkpoint as ckpt
 from cvssl_tpu_torch.utils.logging import MetricsWriter, setup_logging
+from cvssl_tpu_torch.utils.profiler import StepWindowProfiler
 
 
 class Engine:
@@ -443,9 +444,6 @@ def _check_ported(cfg: TrainConfig, method: Method):
         raise NotImplementedError(
             f"method {cfg.method!r} needs the {method.transform!r} "
             "augmentation, which is not ported yet")
-    if cfg.profile_dir:
-        raise NotImplementedError("profile_dir: the step-window profiler "
-                                  "is not ported yet")
     if cfg.pretrained_ckpt:
         # before anything is written; the engine loads it at init
         from cvssl_tpu_torch.models.cnn_checkpoint import require_file
@@ -477,6 +475,10 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     host transform where it does not (``DeviceVolumeStore.takes_patch``
     and ``estimated_bytes`` decide). Validation is the
     sliding window (:meth:`Engine.validate`).
+    With ``profile_dir``, steps 10-20 are traced there
+    (:class:`~cvssl_tpu_torch.utils.profiler.StepWindowProfiler`, ticked
+    after each call of the step loop, so a chunk of ``scan_steps`` moves
+    the window's ends to the chunk's end, as in JAX).
     A method on CTAugment (``transform == "cta"``) always takes the host
     path, the pipeline with the method's policies
     (``DataPipeline(policy=...)``), and ``fit`` drives its hooks in JAX's
@@ -574,6 +576,14 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     t0 = time.time()
     images_seen = 0
     val_seconds = []
+
+    # profile_dir: a trace of steps 10-20, after the warm-up
+    profiler = None
+    if cfg.profile_dir:
+        profiler = StepWindowProfiler(cfg.profile_dir)
+        logger.info("profiling steps %d-%d into %s", profiler.start,
+                    profiler.stop, cfg.profile_dir)
+
     it = state.step
     try:
         while it < max_iterations:
@@ -598,6 +608,9 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
                     state, [next(index_stream) for _ in range(n)])
             it += n
             images_seen += n * cfg.batch_size
+
+            if profiler is not None:
+                profiler.tick(it, metrics)
 
             if it % cfg.log_every == 0 or it == 1:
                 host = {k: float(v) for k, v in metrics.items()}
@@ -673,7 +686,14 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
                 saver.submit(_save_state)
     except BaseException:
         # a failed step or validation must not strand queued checkpoint
-        # jobs; drain the writer but never mask the original error
+        # jobs; drain the writer but never mask the original error. The
+        # profiler stops too (JAX leaves it running), so that its hooks
+        # stay off later launches.
+        if profiler is not None:
+            try:
+                profiler.close()
+            except Exception:
+                logger.exception("profiler also failed during abort")
         if stream is not None:
             stream.close()
         try:
@@ -691,6 +711,8 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     elapsed = time.time() - t0
     throughput = images_seen / elapsed if elapsed > 0 else 0.0
     saver.close()  # join outstanding checkpoint writes before returning
+    if profiler is not None:
+        profiler.close()
     writer.close()
     logger.info("training finished: %.2f %s/sec, best dice %s",
                 throughput, "volumes" if cfg.dim == 3 else "slices",

@@ -56,6 +56,21 @@ class MetricsWriter:
         for tag, value in scalars.items():
             self.add_scalar(tag, value, step)
 
+    def add_image(self, tag: str, image, step: int):
+        """An (H, W) or (H, W, C) image, written as CHW; a no-op without a
+        TensorBoard backend (the reference logs image, prediction and
+        label every 20-50 iterations, ``train_fully_supervised_2D.py:
+        124-141``). JAX: ``MetricsWriter.add_image``."""
+        if self._tb is None:
+            return
+        import numpy as np
+        img = np.asarray(image)
+        if img.ndim == 2:
+            img = img[None]
+        elif img.ndim == 3:
+            img = img.transpose(2, 0, 1)
+        self._tb.add_image(tag, img, int(step))
+
     def flush(self):
         self._jsonl.flush()
         if self._tb is not None:

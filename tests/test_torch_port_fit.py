@@ -453,6 +453,13 @@ def test_fit_raises_for_what_is_not_ported(trees, tmp_path, change):
             fit(cfg, engine=engine, max_steps=1)
         assert not os.path.exists(cfg.snapshot_path())
         return
+    if change == "profile":
+        # the step-window profiler is ported: fit no longer raises for
+        # profile_dir (tests/test_torch_port_profiler.py traces a window)
+        result = fit(cfg, engine=TEngine(cfg, method=_NarrowMT(cfg),
+                                         device="cpu"), max_steps=1)
+        assert result["iterations"] == 1
+        return
     if change == "pretrained":
         # the loader is ported (cnn_checkpoint): a missing file raises, as
         # in JAX, before anything is written
