@@ -229,8 +229,41 @@ the run with a non-zero exit:
    not a throughput); then ``measure_fp_bp_time`` on the config-2 UNet.
    ``--profile-only`` builds the CE+Dice source alone and runs only this
    phase;
-13. one JSON line of the kernels (kernel #1's with its launches in each
-   method's run of phases 5, 5b, 8, 9, 10 and 11 and in the
+13. data parallelism across processes (``parallel/``; run before phase
+   12, which must come last), every rank on the one card: (a) two gloo
+   ranks (NCCL refuses two ranks on one card) run config 2's mean-teacher
+   steps at full width (batch 24 split 12 + 12 in every model call, the
+   outputs gathered; kernel #1 once each way a step in each rank, on the
+   gathered (12, 4, 256, 256) labeled logits), 5 steps from step 1000 in
+   float32 (TF32 off), each step's metrics within rel 1e-4 and every
+   parameter, buffer and EMA teacher leaf within 1e-4 of one process's
+   on the same card from the same seed, and 5 in bf16 with the largest
+   differences printed (cuDNN may pick other bf16 algorithms at batch 12
+   than at 24); each rank's ms/step, which is a correctness run of two
+   ranks sharing one card and not a scaling number; (b) ``torchrun
+   --nproc_per_node 1`` of this script's ``--par-cli-fit`` child, which
+   runs the CLI (``train/cli.py::main``) with ``--distributed`` on nccl
+   on in-memory data (the card machine has no ``h5py``): config 2's
+   mean-teacher fit of 20 iterations, validated at 10 and 20 and
+   checkpointed at 20, against the same fit without ``--distributed``
+   (with one rank every collective is the identity) and a second plain
+   fit: the same files, every non-floating checkpoint tensor (the
+   generator's state among them) equal, the floating ones within 10x the
+   two plain fits' largest difference (bit-equal where they are; the
+   card's step is not bit-reproducible: the bilinear upsample's backward
+   adds with atomics); (c) ``ShardedSlidingWindowEvaluator`` on the two
+   ranks over one volume of config 5's 140 x 180 x 180 (96^3 windows, 18 of
+   them, stride 64; config 5's UNet3D from seed 0, float32 softmax)
+   against the single-rank ``SlidingWindowEvaluator``: at most 1e-5 of
+   the voxels may differ (an exact tie summed in another order); (d)
+   ``sharded_unet3d_forward`` on the two ranks at (1, 1, 96, 192, 96)
+   float32 against the whole eval forward, max abs error 1e-4; (e)
+   ``dryrun_multichip(2, "cuda")`` (JAX's six checks). A failed rank or
+   child fails the smoke. ``--parallel-only`` builds the CE+Dice source
+   alone and runs only this phase;
+14. one JSON line of the kernels (kernel #1's with its launches in each
+   method's run of phases 5, 5b, 8, 9, 10 and 11, in each rank of phase
+   13a (``mean_teacher_rank{r}_of_2``, its 10 steps), and in the
    contrastive_consistency, UAMT-3D, UNETR, pretrained and profiled
    (``mean_teacher_profiled_fit``) ``fit``s; phase
    5b's
@@ -428,6 +461,26 @@ ZOO2D_FIT_STEPS, ZOO2D_VAL_VOLUMES, ZOO2D_TEST_VOLUMES = 20, 2, 4
 # window of steps 10-20 (``utils/profiler.py::StepWindowProfiler``'s
 # default, the one fit builds); no validation and no checkpoint in its run
 PROFILE_FIT_STEPS = 25
+
+# phase 13: data parallelism across processes (``parallel/``), two gloo
+# ranks on the one card against one process from the same seed: config 2's
+# mean-teacher steps (from step 1000, the consistency term live) in
+# float32 (TF32 off) and in bf16; the tolerances of the float32 steps
+PAR_WORLD, PAR_STEPS, PAR_START = 2, 5, 1000
+PAR_METRIC_RTOL, PAR_STATE_ATOL = 1e-4, 1e-4
+# 13b: the CLI's --distributed fit under torchrun (one nccl rank), against
+# the same fit without it, and a second plain fit for the run-to-run
+# spread: iterations, validation and checkpoint cadence, val volumes
+PAR_CLI_STEPS, PAR_CLI_EVERY, PAR_CLI_VAL = 20, 10, 2
+# the --distributed fit's largest difference from the plain fit, in units
+# of two plain fits' (the card's step is not bit-reproducible)
+PAR_CLI_SPREAD = 10.0
+# 13c: the sliding window's windows split over the ranks, on one volume of
+# config 5's shape; the share of voxels whose label may differ from the
+# single rank's (summing the windows in another order may flip an exact
+# tie); 13d: UNet3D's forward with its H axis split, at this shape
+PAR_WINDOW_FLIPS = 1e-5
+PAR_HALO_SHAPE, PAR_HALO_ATOL = (1, 1, 96, 192, 96), 1e-4
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -3603,6 +3656,326 @@ def run_profiled_fit(device, card):
     return launches
 
 
+def par_mean_teacher(dtype):
+    """Config 2's mean-teacher steps on this process's mesh (two ranks in a
+    group, or one process): :data:`PAR_STEPS` steps from step
+    :data:`PAR_START` from the device store, each step synchronised and
+    timed, kernel #1's launches counted. Returns the metrics, launches and
+    ms of every step and the models' and teachers' state (on the host)."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine
+
+    cfg = method_config("mean_teacher", dtype=dtype)
+    engine = Engine(cfg)
+    engine.attach_store(DeviceSliceStore(SyntheticACDC(), cfg.patch_size,
+                                         device=engine.device))
+    stream = two_stream(0).epochs()
+    state = engine.init_state()
+    state.step = PAR_START
+    out = {"metrics": [], "launches": [], "ms": []}
+    for _ in range(PAR_STEPS):
+        before = dict(fcd.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = engine.train_steps(state, [next(stream)])
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append({k: fcd.LAUNCHES[k] - before[k]
+                                for k in before})
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    out["state"] = {
+        f"{kind}/{k}": v.detach().cpu()
+        for kind, m in (("model", state.models["model"]),
+                        ("teacher", state.teachers["model"]))
+        for k, v in m.state_dict().items()}
+    return out
+
+
+def par_volume():
+    """One volume of config 5's shape (140 x 180 x 180) from a seed."""
+    return np.random.default_rng(500).normal(
+        0.5, 0.3, BRATS_VOLUME).astype(np.float32)
+
+
+def par_unet3d(device):
+    """Config 5's UNet3D (5,884,050 parameters, 2 classes) with weights
+    from seed 0, in eval mode on ``device``."""
+    import torch
+    from cvssl_tpu_torch.models import net_factory_3d
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net = net_factory_3d("unet_3D", 1, CLASSES_3D)
+    return net.to(device).eval()
+
+
+def par_predict(net):
+    """The eval softmax of ``net`` in float32."""
+    import torch
+
+    def predict(x):
+        with torch.no_grad():
+            return torch.softmax(net(x).float(), dim=1)
+    return predict
+
+
+def par_halo_input():
+    return np.random.default_rng(501).normal(size=PAR_HALO_SHAPE).astype(
+        np.float32)
+
+
+def par_rank(rank, world, init_file, out_dir):
+    """One rank of phase 13 on the one card (gloo: NCCL refuses two ranks
+    on one card): (a) config 2's mean-teacher steps in float32 and bf16,
+    (c) the sliding window with its windows split, (d) UNet3D's forward
+    with H split, (e) ``dryrun_multichip``. Results go to
+    ``out_dir/rank{r}.pt``."""
+    import torch
+    from cvssl_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cvssl_tpu_torch.parallel.halo import sharded_unet3d_forward
+    from cvssl_tpu_torch.parallel.mesh import distributed_init
+    from cvssl_tpu_torch.parallel.spatial import ShardedSlidingWindowEvaluator
+
+    mesh = distributed_init(init_method=f"file://{init_file}",
+                            world_size=world, rank=rank, backend="gloo",
+                            device="cuda:0")
+    res = {dtype: par_mean_teacher(dtype) for dtype in ("float32", "auto")}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = par_unet3d(mesh.device)
+    ev = ShardedSlidingWindowEvaluator(par_predict(net), (PATCH_3D,) * 3,
+                                       CLASSES_3D, 64, 64, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res["window"] = ev.predict_volume(par_volume())
+    res["window_windows"] = len(ev.corners(BRATS_VOLUME))
+    res["window_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    res["halo"] = sharded_unet3d_forward(net, par_halo_input(), mesh).cpu()
+    res["halo_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dryrun_multichip(world, "cuda")
+    torch.distributed.destroy_process_group()
+
+
+def par_cli_argv(snapshot_root):
+    """Config 2's mean-teacher fit through the CLI: validated at
+    :data:`PAR_CLI_EVERY`, checkpointed at its end."""
+    return ["--exp", "par", "--method", "mean_teacher", "--max_iterations",
+            str(PAR_CLI_STEPS), "--batch_size", str(BATCH), "--labeled_bs",
+            str(LABELED_BS), "--labeled_slices", str(ACDC_LABELED_SLICES),
+            "--patch_size", str(PATCH), str(PATCH), "--val_every",
+            str(PAR_CLI_EVERY), "--ckpt_every", str(PAR_CLI_STEPS),
+            "--snapshot_root", snapshot_root]
+
+
+def par_cli_fit(snapshot_root, distributed):
+    """13b's child: the CLI's fit of :func:`par_cli_argv` on in-memory data
+    (the card machine has no ``h5py`` for ``--root_path``'s files), with
+    ``--distributed`` under torchrun."""
+    from cvssl_tpu_torch.train import cli
+    data = (SyntheticACDC(), two_stream(1337),
+            blob_volumes(n=PAR_CLI_VAL))
+    cli.main(par_cli_argv(snapshot_root)
+             + (["--distributed"] if distributed else []), data=data)
+
+
+def par_compare_steps(one, ranks, card):
+    """13a: each rank's steps against one process's."""
+    for dtype in ("float32", "auto"):
+        want = one[dtype]
+        for r, res in enumerate(ranks):
+            got = res[dtype]
+            for step, launches in enumerate(got["launches"]):
+                if any(n != 1 for n in launches.values()):
+                    raise SystemExit(f"phase 13a {dtype} rank {r} step "
+                                     f"{step}: kernel #1 launches "
+                                     f"{launches}, not 1 + 1")
+            rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                      for g, w in zip(got["metrics"], want["metrics"])
+                      for k in w)
+            err = {k: float((got["state"][k].double()
+                             - want["state"][k].double()).abs().max())
+                   for k in want["state"]}
+            worst = max(err, key=err.get)
+            print(f"phase 13a {dtype} rank {r}/{len(ranks)}: metrics "
+                  f"{[round(m['loss'], 6) for m in got['metrics']]} (one "
+                  f"process {[round(m['loss'], 6) for m in want['metrics']]}"
+                  f"), largest metric rel diff {rel:.3e}, largest state "
+                  f"abs diff {err[worst]:.3e} ({worst}), kernel #1 "
+                  f"launches per step {got['launches'][0]}, ms/step "
+                  f"{[round(t, 2) for t in got['ms']]} (one process "
+                  f"{[round(t, 2) for t in want['ms']]}; two ranks share "
+                  f"one card: a correctness run, not a scaling number), "
+                  f"on {card}")
+            if dtype == "float32" and (rel > PAR_METRIC_RTOL
+                                       or err[worst] > PAR_STATE_ATOL):
+                raise SystemExit(f"phase 13a float32 rank {r}: metric rel "
+                                 f"{rel:.3e} (bound {PAR_METRIC_RTOL}), "
+                                 f"state {err[worst]:.3e} at {worst} "
+                                 f"(bound {PAR_STATE_ATOL})")
+
+
+def par_cli_tensors(root, name):
+    """Every tensor of the fit's checkpoint files under ``root/name``, by
+    file and path, and the file names."""
+    import torch
+    from cvssl_tpu_torch.utils import checkpoint as ckpt
+    snap = os.path.join(root, name, "par_7_labeled", "unet")
+
+    def leaves(tree, path):
+        if torch.is_tensor(tree):
+            yield path, tree
+        elif isinstance(tree, dict):
+            for k in sorted(tree, key=str):
+                yield from leaves(tree[k], f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+    # the best model's file name holds its val Dice to 4 places, which the
+    # card's run-to-run spread may move
+    names = sorted(re.sub(r"_dice_[0-9.]+\.ckpt$", "_dice_*.ckpt", f)
+                   for f in os.listdir(snap))
+    tensors = {}
+    for f in os.listdir(snap):
+        if f.endswith(".ckpt"):
+            key = re.sub(r"_dice_[0-9.]+\.ckpt$", "_dice_*.ckpt", f)
+            tensors.update(leaves(ckpt.load_weights(os.path.join(snap, f)),
+                                  key))
+    return names, tensors
+
+
+def par_cli_diff(a, b):
+    """(tensors bit-equal, largest abs difference of the floating ones,
+    the non-floating ones that differ) between two fits' tensors."""
+    import torch
+    equal, worst, exact_off = 0, 0.0, []
+    for k in a:
+        if torch.equal(a[k], b[k]):
+            equal += 1
+        elif a[k].is_floating_point():
+            worst = max(worst, float((a[k].double()
+                                      - b[k].double()).abs().max()))
+        else:
+            exact_off.append(k)
+    return equal, worst, exact_off
+
+
+def par_compare_cli(root):
+    """13b: the --distributed fit against the plain fit. Both must write the
+    same files. The card's training step is not bit-reproducible (the
+    bilinear upsample's backward adds with atomics, and
+    ``torch.use_deterministic_algorithms`` refuses it), so a second plain
+    fit measures the run-to-run spread: every non-floating tensor (steps,
+    counts, the generator's state) must be equal, and the floating ones
+    bit-equal where the two plain fits are, else within
+    :data:`PAR_CLI_SPREAD` times their spread."""
+    names, plain = par_cli_tensors(root, "plain")
+    spread = {}
+    for other in ("again", "dist"):
+        other_names, tensors = par_cli_tensors(root, other)
+        if other_names != names or \
+                f"model_iter_{PAR_CLI_STEPS}.ckpt" not in names:
+            raise SystemExit(f"phase 13b: {other} wrote {other_names}, the "
+                             f"plain fit {names}")
+        if tensors.keys() != plain.keys():
+            raise SystemExit(f"phase 13b: {other}'s checkpoint keys differ")
+        spread[other] = par_cli_diff(plain, tensors)
+    equal, worst, exact_off = spread["dist"]
+    noise = spread["again"][1]
+    print(f"phase 13b: torchrun --nproc_per_node 1 ... cli --distributed "
+          f"(nccl), {PAR_CLI_STEPS} iterations: {len(names)} files as the "
+          f"plain fit's; {equal} of {len(plain)} checkpoint tensors "
+          f"bit-equal to the plain fit's, largest abs difference {worst:.3e}"
+          f"; a second plain fit: {spread['again'][0]} bit-equal, largest "
+          f"{noise:.3e}")
+    if exact_off or spread["again"][2]:
+        raise SystemExit(f"phase 13b: non-floating tensors differ: "
+                         f"{exact_off or spread['again'][2]}")
+    if worst > PAR_CLI_SPREAD * noise:
+        raise SystemExit(f"phase 13b: --distributed differs by {worst:.3e}, "
+                         f"over {PAR_CLI_SPREAD} x the plain fits' "
+                         f"{noise:.3e}")
+
+
+def run_parallel(device, card):
+    """Phase 13: data parallelism across processes on the one card. Starts
+    13b's two CLI fits (one under torchrun with --distributed, on nccl)
+    and 13a/c/d/e's two gloo ranks, computes the one-process references
+    meanwhile, then holds every result against them. A rank or a child that
+    fails fails the smoke."""
+    import torch
+    import torch.multiprocessing as tmp
+    from cvssl_tpu_torch.eval import val3d
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="par_")
+    me = os.path.abspath(__file__)
+    port = 29400 + os.getpid() % 1000
+    cli_runs = {
+        "dist": subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", "1", "--master_port", str(port), me,
+             "--par-cli-fit", os.path.join(work, "dist"), "--distributed"]),
+        "plain": subprocess.Popen(
+            [sys.executable, me, "--par-cli-fit",
+             os.path.join(work, "plain")]),
+        "again": subprocess.Popen(
+            [sys.executable, me, "--par-cli-fit",
+             os.path.join(work, "again")])}
+    ranks = tmp.start_processes(
+        par_rank, args=(PAR_WORLD, os.path.join(work, "init"), work),
+        nprocs=PAR_WORLD, join=False, start_method="spawn")
+    try:
+        one = {dtype: par_mean_teacher(dtype)
+               for dtype in ("float32", "auto")}
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        net = par_unet3d(device)
+        ev = val3d.SlidingWindowEvaluator(
+            par_predict(net), (PATCH_3D,) * 3, CLASSES_3D, 64, 64,
+            patch_batch=2, device=device)
+        window = ev.predict_volume(par_volume())
+        with torch.no_grad():
+            halo = net(torch.from_numpy(par_halo_input()).to(device)).cpu()
+    finally:
+        while not ranks.join(timeout=600):
+            pass
+        for name, proc in cli_runs.items():
+            if proc.wait(timeout=600) != 0:
+                raise SystemExit(f"phase 13b: the {name} CLI fit exited "
+                                 f"{proc.returncode}")
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(PAR_WORLD)]
+    par_compare_steps(one, res, card)
+    par_compare_cli(work)
+    for r, got in enumerate(res):
+        flips = int((got["window"] != window).sum())
+        if flips > PAR_WINDOW_FLIPS * window.size:
+            raise SystemExit(f"phase 13c rank {r}: {flips} voxels differ")
+        err = float((got["halo"] - halo).abs().max())
+        if got["halo"].shape != halo.shape or err > PAR_HALO_ATOL:
+            raise SystemExit(f"phase 13d rank {r}: max abs err {err:.3e} "
+                             f"(bound {PAR_HALO_ATOL})")
+        print(f"phase 13c rank {r}: sliding window over {BRATS_VOLUME}, "
+              f"{got['window_windows']} of {len(ev.plan(BRATS_VOLUME)[2])} "
+              f"windows on this rank, {flips} of {window.size} voxels "
+              f"differ from one rank's map (bound {PAR_WINDOW_FLIPS} of "
+              f"them), {got['window_ms']:.1f} ms; phase 13d: halo forward "
+              f"at {PAR_HALO_SHAPE} float32, max abs err {err:.3e} against "
+              f"the whole forward (bound {PAR_HALO_ATOL}), "
+              f"{got['halo_ms']:.1f} ms; on {card}")
+    print(f"phase 13e: dryrun_multichip({PAR_WORLD}, 'cuda') passed on "
+          f"every rank")
+    print(f"phase 13 (parallel): {time.perf_counter() - t_phase:.1f} s")
+    return {f"mean_teacher_rank{r}_of_{PAR_WORLD}": {
+        "launches": {k: sum(s[k] for s in got["float32"]["launches"]
+                            + got["auto"]["launches"])
+                     for k in got["float32"]["launches"][0]}}
+        for r, got in enumerate(res)}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3637,6 +4010,17 @@ def main(argv=None) -> int:
         help="build only csrc/fused_ce_dice.cu and run phase 12 (fit with "
         "profile_dir, kernel #1 counted in its trace, measure_fp_bp_time), "
         "then stop without the result line")
+    parser.add_argument(
+        "--parallel-only", dest="only_parallel", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 13 (two gloo "
+        "ranks on the card against one process, the --distributed CLI fit "
+        "under torchrun), then stop without the result line")
+    parser.add_argument(
+        "--par-cli-fit", metavar="DIR", default=None,
+        help="phase 13b's child: the CLI's config-2 fit into DIR (with "
+        "--distributed, under torchrun); phase 13 starts it")
+    parser.add_argument("--distributed", action="store_true",
+                        help="with --par-cli-fit: pass --distributed")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3657,8 +4041,12 @@ def main(argv=None) -> int:
             built[name] = time.perf_counter() - t0
         except Exception as e:  # re-raised in the main thread below
             built[name] = e
+    if args.par_cli_fit:
+        par_cli_fit(args.par_cli_fit, args.distributed)
+        return 0
     sources = ([] if (args.only_3d or args.only_9 or args.only_vit3d
-                      or args.only_zoo2d or args.only_profile)
+                      or args.only_zoo2d or args.only_profile
+                      or args.only_parallel)
                else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
@@ -3725,6 +4113,11 @@ def main(argv=None) -> int:
         print("chip_smoke --profile-only: phase 12 passed; no result line "
               "(the other phases did not run)")
         return 0
+    if args.only_parallel:
+        run_parallel(device, smi)
+        print("chip_smoke --parallel-only: phase 13 passed; no result line "
+              "(the other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -3752,6 +4145,7 @@ def main(argv=None) -> int:
     r10 = run_vit3d(device, smi, strict, mem_bw, f32_rate)
     methods.update(r10["methods"])
     methods.update(run_zoo2d(smi, strict))
+    methods.update(run_parallel(device, smi))
     # last: the profiler's session slows every later launch
     methods["mean_teacher_profiled_fit"] = {
         "launches": run_profiled_fit(device, smi)}

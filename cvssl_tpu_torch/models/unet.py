@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cvssl_tpu_torch.ops.dropout import BitsDropout
+from cvssl_tpu_torch.parallel import mesh as pmesh
 
 DEFAULT_FEATURES = (16, 32, 64, 128, 256)
 DEFAULT_DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.5)
@@ -33,12 +34,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     The batch statistics come out of the normalisation itself: run with
     momentum 1 on scratch buffers, ``F.batch_norm`` (cuDNN on the card)
     leaves the batch mean and unbiased variance there, so the update costs no
-    second pass over the activations."""
+    second pass over the activations.
+
+    Inside a split model call (``parallel/mesh.py::split_call``) the batch
+    is the global one: the mean and then the biased variance over it come
+    from two differentiable all-reduces of per-channel sums, in float32,
+    and the running buffers follow the same rule with the global count, so
+    they stay equal on every rank."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        split = pmesh.current_split()
+        if split is not None:
+            return _global_batch_norm(self, x, split.mesh)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
@@ -49,6 +59,29 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
         return y
+
+
+def _global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                       mesh) -> torch.Tensor:
+    """Train-mode batch norm of this rank's rows with the statistics of the
+    global batch (two-pass: the mean, then the sum of squared deviations
+    from it), and the Flax running-statistics update with them."""
+    dims = [0] + list(range(2, x.ndim))
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    n = x.numel() // x.shape[1] * mesh.world
+    with torch.autocast(x.device.type, enabled=False):
+        xf = x.float()
+        mean = pmesh.all_reduce_sum(mesh, xf.sum(dims)) / n
+        d = xf - mean.view(shape)
+        var = pmesh.all_reduce_sum(mesh, (d * d).sum(dims)) / n
+        y = d * torch.rsqrt(var + bn.eps).view(shape)
+        if bn.affine:
+            y = y * bn.weight.view(shape) + bn.bias.view(shape)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+    return y.to(x.dtype)
 
 
 class ConvBlock(nn.Module):
@@ -164,23 +197,28 @@ class UNet(nn.Module):
 
 def _uniform(shape, lo: float, hi: float,
              generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """U[lo, hi) float32 draws."""
-    u = torch.rand(shape, generator=generator, device=device)
+    """U[lo, hi) float32 draws over the batch axis (``shape[0]``; inside a
+    split call drawn at the global batch, ``parallel.mesh.draw_rows``)."""
+    u = pmesh.draw_rows(shape, lambda s: torch.rand(s, generator=generator,
+                                                    device=device))
     return u * (hi - lo) + lo
 
 
 def _keep(shape, p_keep: float, generator: Optional[torch.Generator],
           device) -> torch.Tensor:
-    """Bernoulli(p_keep) boolean draws (JAX: ``uniform < p``)."""
-    return torch.rand(shape, generator=generator, device=device) < p_keep
+    """Bernoulli(p_keep) boolean draws (JAX: ``uniform < p``) over the batch
+    axis, as :func:`_uniform`."""
+    return pmesh.draw_rows(shape, lambda s: torch.rand(
+        s, generator=generator, device=device)) < p_keep
 
 
 def feature_noise(x: torch.Tensor, generator: Optional[torch.Generator],
                   uniform_range: float = 0.3) -> torch.Tensor:
     """x * U(-r, r) + x with the noise drawn over ``x.shape[1:]`` and shared
-    across the batch."""
-    noise = _uniform(x.shape[1:], -uniform_range, uniform_range, generator,
-                     x.device).to(x.dtype)
+    across the batch (whole on every rank of a split call)."""
+    with pmesh.shared_draws():
+        noise = _uniform(x.shape[1:], -uniform_range, uniform_range,
+                         generator, x.device).to(x.dtype)
     return x * noise[None] + x
 
 

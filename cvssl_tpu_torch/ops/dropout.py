@@ -13,6 +13,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from cvssl_tpu_torch.parallel import mesh as pmesh
+
 
 def bits_threshold(rate: float) -> int:
     return int(round(rate * 256.0))
@@ -32,7 +34,9 @@ def bits_dropout(x: torch.Tensor, rate: float,
 
 class BitsDropout(nn.Module):
     """Drop-in for ``nn.Dropout(rate)``: one random byte per element from
-    the caller's ``torch.Generator`` (on the tensor's device)."""
+    the caller's ``torch.Generator`` (on the tensor's device); inside a
+    split call the bytes of the global batch are drawn and the rank's rows
+    kept (``parallel.mesh.draw_rows``)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -45,8 +49,9 @@ class BitsDropout(nn.Module):
             return x
         if t >= 256:
             return torch.zeros_like(x)
-        draw = torch.randint(0, 256, x.shape, dtype=torch.uint8,
-                             device=x.device, generator=generator)
+        draw = pmesh.draw_rows(x.shape, lambda s: torch.randint(
+            0, 256, s, dtype=torch.uint8, device=x.device,
+            generator=generator))
         return bits_dropout(x, self.rate, draw)
 
     def extra_repr(self) -> str:

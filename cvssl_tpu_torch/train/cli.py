@@ -6,9 +6,17 @@ JAX-package invocation runs here unchanged, plus ``--device``:
         --max_iterations 30000 --batch_size 24 --labeled_bs 12 --labeled_num 7
 
 It trains on one CUDA card; ``--device cpu --dtype float32`` runs on the
-CPU. ``--distributed`` and ``--dcn_slices`` raise (one card so far); the
-TPU-only flags (``--rng_impl``, ``--s2d_levels``, ``--compile_cache``,
-``--num_workers``) are accepted and inert, as in the port's ``TrainConfig``.
+CPU. On N cards of a node, one process per card:
+
+    torchrun --nproc_per_node N -m cvssl_tpu_torch.train.cli --distributed \
+        --batch_size 24 ...
+
+``--distributed`` joins the process group from torchrun's environment
+before the config is built (``parallel/mesh.py::distributed_init``; unlike
+JAX's it does not set ``dcn_slices``), and the batch is split over the
+ranks. ``--dcn_slices`` raises (TPU mesh folding); the TPU-only flags
+(``--rng_impl``, ``--s2d_levels``, ``--compile_cache``, ``--num_workers``)
+are accepted and inert, as in the port's ``TrainConfig``.
 """
 from __future__ import annotations
 
@@ -71,9 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "Swin-tiny (swin_unet / ViT_Seg)")
     p.add_argument("--dim", type=int, default=2, choices=[2, 3])
     p.add_argument("--num_devices", type=int, default=None,
-                   help="None or 1: one card so far")
+                   help="the world size (default: the process group's, 1 "
+                        "without --distributed)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host training: not ported yet (raises)")
+                   help="join torchrun's process group: one process per "
+                        "card, the batch split over them")
     p.add_argument("--dcn_slices", type=int, default=None,
                    help="TPU mesh folding: not ported (raises)")
     p.add_argument("--scan_steps", type=int, default=1)
@@ -86,9 +96,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args) -> TrainConfig:
-    if args.distributed or args.dcn_slices is not None:
-        raise NotImplementedError("--distributed / --dcn_slices: the port "
-                                  "trains on one card so far")
+    """The config of ``args``; with ``--distributed`` this process joins
+    torchrun's process group first, so that the config sees its size."""
+    if args.dcn_slices is not None:
+        raise NotImplementedError("--dcn_slices folds a TPU mesh across "
+                                  "hosts; the port's mesh is the process "
+                                  "group (--distributed)")
+    if args.distributed:
+        from cvssl_tpu_torch.parallel.mesh import distributed_init
+        distributed_init(device=args.device)
     return TrainConfig(
         root_path=args.root_path, exp=args.exp, model=args.model,
         model2=args.model2, method=args.method,
@@ -112,11 +128,18 @@ def config_from_args(args) -> TrainConfig:
         compile_cache=args.compile_cache)
 
 
-def main(argv=None):
+def main(argv=None, data=None):
+    """Parse ``argv`` and train. ``data`` is ``fit``'s: in-memory train
+    and val sets instead of ``--root_path``'s files."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     from cvssl_tpu_torch.train.engine import fit
-    result = fit(cfg, device=args.device)
+    try:
+        result = fit(cfg, device=args.device, data=data)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     print({"iterations": result["iterations"],
            "slices_per_sec": round(result["slices_per_sec"], 2),
            "best_dice": result["best_dice"]})

@@ -9,13 +9,17 @@ TPU are accepted and inert here:
 * ``rng_impl``: JAX PRNG implementation; the port draws from
   ``torch.Generator``s.
 * ``compile_cache``: XLA's persistent compilation cache.
-* ``dcn_slices``: mesh folding across TPU hosts.
 * ``num_workers``: host data-pipeline workers; as in JAX, the host
   pipeline loads samples one after another, on purpose, in one prefetch
   thread, so that the generator it shares with the sampler is drawn in a
   fixed order (``data/pipeline.py``).
 
-``num_devices`` must be None or 1: the port trains on one card so far.
+``num_devices`` is the world size of the process group, one process per
+card as torchrun starts them (``parallel/mesh.py``): None takes the group's
+size (1 outside a group; JAX takes the largest device count that divides
+the batch), another value than the group's raises, and the batch must split
+evenly over the ranks, as JAX's ``shard_batch`` requires. ``dcn_slices``
+(JAX's TPU mesh folding across hosts) must be None.
 ``fused_loss`` must be None or True: the fused CE+Dice kernel is always on.
 ``pretrained_ckpt``: a local ``.pth`` that ``Engine.init_state`` loads
 into each model it fits (``models/cnn_checkpoint.py``: Res2Net into
@@ -91,17 +95,29 @@ class TrainConfig:
     s2d_levels: Optional[int] = None   # inert (TPU space-to-depth levels)
     s2d_loss: str = "auto"             # inert (TPU grouped-logits losses)
     dim: int = 2                       # 2 or 3 (dataset/model family)
-    num_devices: Optional[int] = None  # None or 1
-    dcn_slices: Optional[int] = None   # inert (TPU mesh folding)
+    num_devices: Optional[int] = None  # None or the process group's size
+    dcn_slices: Optional[int] = None   # None (TPU mesh folding)
     profile_dir: Optional[str] = None  # fit traces steps 10-20 there
     compile_cache: Optional[str] = "auto"  # inert (XLA compilation cache)
     vit_kwargs: Optional[dict] = None  # SwinUnet constructor overrides
     pretrained_ckpt: Optional[str] = None  # local .pth (cnn_checkpoint)
 
     def __post_init__(self):
-        if self.num_devices not in (None, 1):
-            raise ValueError("the port trains on one device: num_devices "
-                             f"must be None or 1, got {self.num_devices}")
+        from cvssl_tpu_torch.parallel.mesh import world_size
+        world = world_size()
+        if self.num_devices is not None and self.num_devices != world:
+            raise ValueError(
+                f"num_devices={self.num_devices}, but this run has {world} "
+                "process(es): the port runs one process per card; launch "
+                f"torchrun --nproc_per_node {self.num_devices} -m "
+                "cvssl_tpu_torch.train.cli --distributed ...")
+        if self.dcn_slices is not None:
+            raise NotImplementedError(
+                "dcn_slices folds a TPU mesh across hosts; the port's mesh "
+                "is the process group (torchrun, --distributed)")
+        if self.batch_size % world:
+            raise ValueError(f"batch_size={self.batch_size} does not split "
+                             f"over {world} ranks")
         if self.fused_loss is False:
             raise ValueError("the port always runs the fused CE+Dice "
                              "kernel: fused_loss must be None or True")

@@ -17,6 +17,14 @@ optimizer steps (JAX ``engine.py:146-229``).
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; on a
 machine without CUDA, ``Engine(cfg)`` raises.
 
+Inside a process group (``parallel/mesh.py::distributed_init``, one process
+per card, as torchrun starts them) the engine is data-parallel: every rank
+holds the global batch, each model call runs on the rank's rows and is
+gathered (``StepCtx`` with the mesh), ``init_state`` broadcasts rank 0's
+weights, and ``train_step`` averages the gradients over the ranks before
+any optimizer step; ``fit`` validates and writes on rank 0. The numbers are
+those of one process on the global batch (JAX's GSPMD program).
+
 Numerics on the card: float32 matmuls and convolutions run in full float32
 (TF32 off for both cuBLAS and cuDNN, set explicitly, since cuDNN's default is
 TF32); under ``dtype="auto"`` the plain UNet's convolutions and SwinUnet's
@@ -50,6 +58,7 @@ from cvssl_tpu_torch.data.sampler import (ShuffleBatchSampler,
 from cvssl_tpu_torch.eval import val2d, val3d
 from cvssl_tpu_torch.ops import edt
 from cvssl_tpu_torch.ops.ema import ema_decay_schedule, ema_update
+from cvssl_tpu_torch.parallel import mesh as pmesh
 from cvssl_tpu_torch.train.config import TrainConfig
 from cvssl_tpu_torch.train.methods.base import Method, get_method
 from cvssl_tpu_torch.train.state import StepCtx, TrainState
@@ -68,6 +77,10 @@ class Engine:
                                    "device='cpu' to run on the CPU")
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        # the process group's ranks (one process and no group outside one);
+        # in a group a bare "cuda" is the rank's card
+        self.mesh = pmesh.make_mesh(cfg.num_devices, device=self.device)
+        self.device = self.mesh.device
         self.cfg = cfg
         self.method = method or get_method(cfg.method, cfg)
         # the compute dtype of each model slot (teachers share their
@@ -88,8 +101,10 @@ class Engine:
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Models with random weights from ``seed`` (default ``cfg.seed``),
         then ``cfg.pretrained_ckpt``'s where it fits
-        (:meth:`_load_pretrained`), their teachers as copies, optimizers,
-        and the step's generator."""
+        (:meth:`_load_pretrained`), rank 0's on every rank of a process
+        group (JAX ``replicate_state``), their teachers as copies,
+        optimizers, and the step's generator (the same seed on every
+        rank, so that the ranks draw in lockstep)."""
         seed = self.cfg.seed if seed is None else seed
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -97,6 +112,7 @@ class Engine:
         models = {n: m.to(self.device).train() for n, m in models.items()}
         if self.cfg.pretrained_ckpt:
             self._load_pretrained(models)
+        pmesh.replicate_state(self.mesh, models.values())
         teachers = {}
         for name in self.method.teacher_names:
             teachers[name] = copy.deepcopy(models[name]).requires_grad_(False)
@@ -140,11 +156,17 @@ class Engine:
         is kept for their own parameters (JAX differentiates the main
         parameters only); then the discriminator phase (``loss_d``), which
         sees the segmenter's weights before the update and its BatchNorm
-        running statistics after the generator phase's forwards."""
+        running statistics after the generator phase's forwards.
+
+        In a process group each model call is split over the ranks, and
+        the gradients of both phases are averaged over the ranks before
+        any optimizer step (``parallel/mesh.py``: each rank holds W times
+        its rows' share of the gradient of the same loss)."""
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
         ctx = StepCtx(self.cfg, state.models, state.teachers,
-                      state.generator, state.step, self.model_dtypes)
+                      state.generator, state.step, self.model_dtypes,
+                      mesh=self.mesh)
         adversarial = [state.models[n]
                        for n in self.method.adversarial_models]
         for m in adversarial:
@@ -159,6 +181,8 @@ class Engine:
             d_loss, d_metrics = self.method.loss_d(ctx, batch)
             d_loss.backward()
             metrics = {**metrics, **d_metrics, "loss_d": d_loss}
+        pmesh.all_reduce_grads(self.mesh, [
+            p for m in state.models.values() for p in m.parameters()])
         for opt in state.optimizers.values():
             opt.step()
         decay = ema_decay_schedule(state.step, self.cfg.ema_decay)
@@ -188,7 +212,9 @@ class Engine:
 
     def train_step_indices(self, state: TrainState, indices):
         """One step from the attached store: gather + augmentation on the
-        device, then the step body."""
+        device, then the step body. In a process group every rank gathers
+        and augments the whole global batch from its own store and
+        generator."""
         if self.store is None:
             raise RuntimeError("attach_store() first")
         batch = self.store.batch_fn(self.store.arrays(),
@@ -450,6 +476,44 @@ def _check_ported(cfg: TrainConfig, method: Method):
         require_file(cfg.pretrained_ckpt)
 
 
+class _NoWriter:
+    """The metrics writer of a rank other than 0: it writes nothing."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def add_scalars(self, scalars, step):
+        pass
+
+    def close(self):
+        pass
+
+
+def _on_lead(mesh: pmesh.Mesh, fn: Callable, n: int) -> list:
+    """``fn()``'s ``n`` floats, computed on rank 0 alone and broadcast to
+    every rank (float64, exact); outside a group, ``fn()``. An exception on
+    rank 0 is raised there and, through the broadcast, as a RuntimeError
+    on the other ranks, which would otherwise wait in it."""
+    if not mesh.distributed:
+        return fn()
+    buf = torch.zeros(n + 1, dtype=torch.float64, device=mesh.device)
+    error = None
+    if mesh.rank == 0:
+        try:
+            buf[1:] = torch.tensor(fn(), dtype=torch.float64)
+        except BaseException as e:  # re-raised below, after the broadcast
+            error = e
+            buf[0] = 1.0
+    torch.distributed.broadcast(buf, 0, group=mesh.group)
+    if error is not None:
+        raise error
+    values = buf.tolist()
+    if values[0]:
+        raise RuntimeError("rank 0 failed in the work it runs alone for "
+                           "every rank (its traceback is in its output)")
+    return values[1:]
+
+
 def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
         max_steps: Optional[int] = None, data=None,
         device="cuda") -> dict:
@@ -493,16 +557,33 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     the CTA path also the loader's generator, the policies of the requests
     in flight and the method's hook state (``hook_state``: the CTAugment
     rates, generators and policies, the epoch's losses so far), and the
-    resumed run does not start an epoch anew."""
+    resumed run does not start an epoch anew.
+
+    In a process group every rank trains (the engine splits each model
+    call over the ranks); rank 0 alone writes the log, the metrics, the
+    checkpoints and the best models, and validates, and its validation
+    scores are broadcast, so every rank keeps the same best Dice. Every
+    rank resumes from the same files, after a barrier. A failed step or
+    validation on any rank fails the run: a validation error on rank 0
+    reaches the other ranks through that broadcast, and torchrun ends the
+    other ranks of a process that exits."""
     engine = engine or Engine(cfg, device=device)
     _check_ported(cfg, engine.method)
+    mesh = engine.mesh
+    lead = mesh.rank == 0
     snapshot = cfg.snapshot_path()
-    logger = setup_logging(snapshot)
-    writer = MetricsWriter(os.path.join(snapshot, "log"))
+    if lead:
+        logger = setup_logging(snapshot)
+        writer = MetricsWriter(os.path.join(snapshot, "log"))
+    else:
+        logger = logging.getLogger(f"cvssl_tpu_torch_rank{mesh.rank}")
+        writer = _NoWriter()
     if not cfg.deterministic:
         # the reference's --deterministic 0 trades reproducibility away;
-        # here that is an entropy-drawn seed for the RNG and the sampling
-        entropy_seed = int.from_bytes(os.urandom(4), "little")
+        # here that is an entropy-drawn seed for the RNG and the sampling,
+        # rank 0's on every rank
+        entropy_seed = int(_on_lead(
+            mesh, lambda: [int.from_bytes(os.urandom(4), "little")], 1)[0])
         cfg = dataclasses.replace(cfg, seed=entropy_seed)
         logger.info("--deterministic 0: entropy seed %d", entropy_seed)
     logger.info("config: %s", cfg)
@@ -552,6 +633,7 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     # resume if a full-state checkpoint exists (with best_dice, so the
     # best-checkpoint contract survives restarts)
     best_dice = {n: 0.0 for n in engine.method.eval_model_names()}
+    pmesh.barrier(mesh)
     tree, start_it, meta = ckpt.restore_latest(snapshot)
     if tree is not None:
         state = ckpt.load_state_tree(state, tree)
@@ -579,7 +661,7 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
 
     # profile_dir: a trace of steps 10-20, after the warm-up
     profiler = None
-    if cfg.profile_dir:
+    if cfg.profile_dir and lead:
         profiler = StepWindowProfiler(cfg.profile_dir)
         logger.info("profiling steps %d-%d into %s", profiler.start,
                     profiler.stop, cfg.profile_dir)
@@ -612,7 +694,7 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
             if profiler is not None:
                 profiler.tick(it, metrics)
 
-            if it % cfg.log_every == 0 or it == 1:
+            if lead and (it % cfg.log_every == 0 or it == 1):
                 host = {k: float(v) for k, v in metrics.items()}
                 writer.add_scalars({f"info/{k}": v for k, v in host.items()},
                                    it)
@@ -620,21 +702,31 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
                     f"{k}={v:.4f}" for k, v in sorted(host.items())))
 
             if it % cfg.val_every == 0:
-                for name in engine.method.eval_model_names():
-                    tv = time.perf_counter()
-                    perf = engine.validate(state, val_ds, name)
-                    val_seconds.append(time.perf_counter() - tv)
-                    mean_dice = float(perf[:, 0].mean())
-                    mean_hd95 = float(perf[:, 1].mean())
-                    writer.add_scalar(f"info/{name}_val_mean_dice",
-                                      mean_dice, it)
-                    writer.add_scalar(f"info/{name}_val_mean_hd95",
-                                      mean_hd95, it)
-                    logger.info("iteration %d : %s mean_dice %.4f "
-                                "mean_hd95 %.4f", it, name, mean_dice,
-                                mean_hd95)
+                names = list(engine.method.eval_model_names())
+
+                def _validate(it=it):
+                    dices = []
+                    for name in names:
+                        tv = time.perf_counter()
+                        perf = engine.validate(state, val_ds, name)
+                        val_seconds.append(time.perf_counter() - tv)
+                        mean_dice = float(perf[:, 0].mean())
+                        mean_hd95 = float(perf[:, 1].mean())
+                        writer.add_scalar(f"info/{name}_val_mean_dice",
+                                          mean_dice, it)
+                        writer.add_scalar(f"info/{name}_val_mean_hd95",
+                                          mean_hd95, it)
+                        logger.info("iteration %d : %s mean_dice %.4f "
+                                    "mean_hd95 %.4f", it, name, mean_dice,
+                                    mean_hd95)
+                        dices.append(mean_dice)
+                    return dices
+                for name, mean_dice in zip(
+                        names, _on_lead(mesh, _validate, len(names))):
                     if mean_dice > best_dice[name]:
                         best_dice[name] = mean_dice
+                        if not lead:
+                            continue
                         snap = ckpt.device_snapshot(
                             state.models[name].state_dict())
                         # reference naming: iter_{k}_dice_{d} +
@@ -655,7 +747,7 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
                             ckpt.save_weights(b, host_sd)
                         saver.submit(_save_best)
 
-            if it % cfg.ckpt_every == 0:
+            if lead and it % cfg.ckpt_every == 0:
                 snap = ckpt.device_snapshot(ckpt.state_tree(state))
                 eval_names = list(engine.method.eval_model_names())
                 teacher_names = list(engine.method.teacher_names)
@@ -711,6 +803,7 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     elapsed = time.time() - t0
     throughput = images_seen / elapsed if elapsed > 0 else 0.0
     saver.close()  # join outstanding checkpoint writes before returning
+    pmesh.barrier(mesh)    # every rank returns with rank 0's files written
     if profiler is not None:
         profiler.close()
     writer.close()

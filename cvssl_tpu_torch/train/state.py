@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from cvssl_tpu_torch.parallel.mesh import Mesh, split_call
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -36,18 +38,31 @@ class StepCtx:
     bytes and method noise come from the state's generator. Each model
     computes in its own dtype (``dtypes``, by model name, float32 where
     absent): bfloat16 runs under autocast, as ``TrainConfig.model_dtype``
-    gives it."""
+    gives it.
+
+    With a ``mesh`` of several ranks every model call is split
+    (``parallel/mesh.py::split_call``): the model runs on the rank's rows of
+    the call's batch and the outputs come back gathered, so the methods'
+    loss code sees the global tensors; a batch the world size does not
+    divide runs whole."""
 
     def __init__(self, cfg, models: Dict[str, nn.Module],
                  teachers: Dict[str, nn.Module],
                  generator: Optional[torch.Generator], step: int,
-                 dtypes: Optional[Dict[str, torch.dtype]] = None):
+                 dtypes: Optional[Dict[str, torch.dtype]] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.models = models
         self.teachers = teachers
         self.generator = generator
         self.step = step
         self.dtypes = dtypes or {}
+        self.mesh = mesh
+
+    def _call(self, model: nn.Module, x: torch.Tensor, *args, **kwargs):
+        if self.mesh is None:
+            return model(x, *args, **kwargs)
+        return split_call(self.mesh, model, x, *args, **kwargs)
 
     def _autocast(self, name: str, x: torch.Tensor):
         dtype = self.dtypes.get(name, torch.float32)
@@ -65,12 +80,13 @@ class StepCtx:
         model = self.models[name]
         if train:
             with self._autocast(name, x):
-                return model(x, *extra_args, generator=self.generator)
+                return self._call(model, x, *extra_args,
+                                  generator=self.generator)
         was_training = model.training
         model.eval()
         try:
             with self._autocast(name, x):
-                return model(x, *extra_args)
+                return self._call(model, x, *extra_args)
         finally:
             model.train(was_training)
 
@@ -79,7 +95,7 @@ class StepCtx:
         reference."""
         model = self.teachers[name]
         with torch.no_grad(), self._autocast(name, x):
-            return model(x, self.generator)
+            return self._call(model, x, self.generator)
 
     def forward_teacher_scan(self, name: str, x_groups: torch.Tensor):
         """Sequential teacher forwards under no_grad, one per group of
@@ -88,11 +104,13 @@ class StepCtx:
         (``train_uncertainty_aware_mean_teacher_2D.py:163-172``). BatchNorm
         normalises with each pass's own batch statistics and the running
         buffers update pass after pass; each pass draws its own dropout
-        bytes. Returns the logits stacked on a leading group axis. JAX:
+        bytes. Returns the logits stacked on a leading group axis; with a
+        mesh each group's batch is split. JAX:
         ``StepCtx.forward_teacher_scan`` (a ``lax.scan``)."""
         model = self.teachers[name]
         with torch.no_grad(), self._autocast(name, x_groups):
-            return torch.stack([model(xg, self.generator) for xg in x_groups])
+            return torch.stack([self._call(model, xg, self.generator)
+                                for xg in x_groups])
 
     # -- draws, all from the step's generator (a resume restores it) --------
     def normal(self, shape, device) -> torch.Tensor:

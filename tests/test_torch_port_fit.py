@@ -520,10 +520,20 @@ def test_cli_pretrained_ckpt_raises_before_any_step(trees, tmp_path,
     assert not os.path.exists(tmp_path / "snap")
 
 
-@pytest.mark.parametrize("argv", [["--distributed"], ["--dcn_slices", "2"]])
-def test_cli_multi_host_flags_raise(argv):
-    with pytest.raises(NotImplementedError):
-        tcli.config_from_args(tcli.build_parser().parse_args(argv))
+@pytest.mark.parametrize("argv", [["--distributed", "--device", "cpu"],
+                                  ["--dcn_slices", "2"]])
+def test_cli_multi_host_flags_raise(argv, monkeypatch):
+    """``--dcn_slices`` (TPU mesh folding) raises; ``--distributed`` joins
+    torchrun's process group, so outside torchrun it raises naming it (the
+    multi-rank runs are ``tests/test_torch_port_parallel.py``'s)."""
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    if "--distributed" in argv:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            tcli.config_from_args(tcli.build_parser().parse_args(argv))
+    else:
+        with pytest.raises(NotImplementedError):
+            tcli.config_from_args(tcli.build_parser().parse_args(argv))
 
 
 def test_cli_trains_on_the_cpu(trees, tmp_path):
