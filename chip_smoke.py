@@ -55,7 +55,7 @@ the run with a non-zero exit:
    exam), both models (cps, contrastive_cross) and the discriminators
    moved, the heads' weights not (they are in no optimizer) and their
    BatchNorm statistics moved, slices/s and
-   peak memory over 30 steps, and a short profile of each method's step
+   peak memory over 20 steps, and a short profile of each method's step
    (device busy time per step); every method's checked steps run under the
    sync debug mode "error" if the mean-teacher step made no synchronising
    call. uamt's output conv is scaled by 8 so that its MC teacher is sure
@@ -96,24 +96,24 @@ the run with a non-zero exit:
 7. ``fit`` at full width through the port's API: mean-teacher UNet, batch
    24 = 12 + 12, 256^2, 4 classes, dtype auto, on in-memory blob data of
    ACDC's geometry (1312 train slices, 136 labeled; 20 val volumes of
-   10 x 256^2, so validation runs resident on the card); 400 iterations
-   with val and checkpoints every 200 into a temporary snapshot
-   directory, then a second ``fit`` to 600 that must resume from 400; the
+   10 x 256^2, so validation runs resident on the card); 200 iterations
+   with val and checkpoints every 100 into a temporary snapshot
+   directory, then a second ``fit`` to 300 that must resume from 200; the
    checkpoint files, the val table, the fused kernel's launches (one per
    iteration), slices/s including validation and checkpoints, the val
    pass's time and the EDT's peak memory; then ``fit`` of cps on the same
-   data, 200 iterations with val and checkpoints every 100: the dual-model
+   data, 100 iterations with val and checkpoints every 50: the dual-model
    checkpoint files (``model1_``/``model2_`` prefixes,
    ``unet_best_model1.ckpt``, no EMA files), two launches of each kernel an
    iteration; then ``fit`` of fixmatch, 100 iterations with one
    validation and one checkpoint, through the store's ``weak_strong``
    mode; then ``fit`` of cross_teaching at config 4's size on the same
-   train slices and val volumes at 224^2, 200 iterations with val and
-   checkpoints every 100: both slots validated (model2 at ``patch_size2``),
+   train slices and val volumes at 224^2, 100 iterations with val and
+   checkpoints every 50: both slots validated (model2 at ``patch_size2``),
    the dual-model files, two launches of each kernel an iteration; then the
    host data path: the host's time to transform and collate a batch, a
    few mean-teacher steps from the host pipeline's pinned batches (under
-   the sync debug mode "error" where phase 5 ran so), and a 200-iteration
+   the sync debug mode "error" where phase 5 ran so), and a 100-iteration
    mean-teacher ``fit`` with ``device_data=False`` on cell 2's data (one
    validation, one checkpoint, its slices/s beside the store path's);
    then ``fit`` of contrastive_cross at config 4's size, 100 iterations,
@@ -261,9 +261,51 @@ the run with a non-zero exit:
    ``dryrun_multichip(2, "cuda")`` (JAX's six checks). A failed rank or
    child fails the smoke. ``--parallel-only`` builds the CE+Dice source
    alone and runs only this phase;
-14. one JSON line of the kernels (kernel #1's with its launches in each
+14. K steps a call as CUDA graphs (``Engine.train_steps_scan`` on the
+   store, ``train_steps_fixed`` on one batch; run before phase 12): each
+   graphed run starts from a copy of one state, beside three eager runs
+   from the same copy, in chunks that each start at a given step (every
+   run jumps alike); step, optimizer counts and the generator's state
+   bit-equal to eager; the parameters and the buffers of the models and
+   of the teachers, and the losses, of the graphed run each within 10x
+   the largest difference between two eager
+   runs (the card's step is not bit-reproducible), or within 5e-5 of the
+   largest value (the eager runs at the reduced size often agree and
+   then differ sporadically by up to 5.7e-6 of it), kernel #1's host
+   launches printed (warm-ups and captures only). (a) config 2's
+   mean_teacher at full width, 2 chunks of K = 10 from step 995, so the
+   chunks cross its step-1000 graph key (2 graphs); (b) config 4's
+   cross_teaching (a UNet and SwinUnet-tiny, batch 16 at 224^2), one
+   chunk of 10; (c) UAMT-3D at config 5 through ``train_steps_fixed``
+   with K = 10 on one random batch (``bench.py:296-336``'s record); each
+   timed graphed and eager in calls of 10 (slices/s or volumes/s,
+   ms/step, peak memory), then, after all three timed windows, one call
+   of each profiled: the busy share, and kernel #1's device kernels in
+   the graphed call exactly K + K (2K + 2K for cross_teaching); (d) the
+   14 other 2D store-path methods (batch 8 = 4 + 4 at 64^2, SwinUnet
+   thinned) and the 6 other 3D ones (batch 4 = 2 + 2 at 32^3), with a
+   consistency ramp of one epoch, in chunks where the step's host values
+   turn: from step 0 (the EMA decay 0, 1/2, 2/3, ...), across 150 (the
+   ramp's staircase, uamt's threshold) and across 1000 (the graph key);
+   (e) config 2's mean_teacher ``fit`` with the CLI's flags and
+   ``--scan_steps 10`` over 30 iterations, validated every 15 and
+   checkpointed every 10 (chunks of 10, 5, 5, 10), stopped at 20 and
+   resumed on the same engine (graphs and pool dropped, captured anew),
+   against two ``cli.main`` fits with ``--scan_steps 1``: the same step,
+   counts, generator and files, the checkpoints within 10x the plain
+   fits' spread, kernel #1 2 + 2 host launches a capture and one device
+   kernel each way a step in the trace of steps 11-20. Every graphed
+   call of (a)-(d) runs under sync debug mode "error" (warm-up and
+   capture included: the capture does not synchronise).
+   ``--graph-only`` builds the CE+Dice source alone and runs only this
+   phase;
+15. one JSON line of the kernels (kernel #1's with its launches in each
    method's run of phases 5, 5b, 8, 9, 10 and 11, in each rank of phase
-   13a (``mean_teacher_rank{r}_of_2``, its 10 steps), and in the
+   13a (``mean_teacher_rank{r}_of_2``, its 10 steps), in each graphed
+   call profiled in phase 14 (``mean_teacher_graphed``,
+   ``cross_teaching_graphed``, ``uamt_3d_graphed``: device kernels of 10
+   replays) and in the trace of 14e's graphed fit
+   (``mean_teacher_graphed_fit``), and in the
    contrastive_consistency, UAMT-3D, UNETR, pretrained and profiled
    (``mean_teacher_profiled_fit``) ``fit``s; phase
    5b's
@@ -308,7 +350,9 @@ FWD_REL_TOL = 1e-5
 GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # near-zero gradient elements need an absolute floor: 1e-5 of the largest
 GRAD_ATOL_OF_MAX = 1e-5
-MEASURE_STEPS = 30
+# timed steps of phases 3, 5 and 5b (20, so that the whole smoke keeps
+# well inside its time limit)
+MEASURE_STEPS = 20
 CONV_CASES = (((24, 256, 256, 16), "float32", 32),
               ((24, 256, 256, 16), "bfloat16", 32),
               ((2, 32, 32, 16), "float32", 16),
@@ -320,7 +364,7 @@ CONV_CASES = (((24, 256, 256, 16), "float32", 32),
               ((1, 45, 40, 16), "float32", 3))
 CONV_REL_TOL = 1e-5        # of the float64 output's largest element
 FIT_VAL_VOLUMES, FIT_VAL_SLICES = 20, 10
-FIT_STEPS, FIT_RESUME_STEPS, FIT_EVERY = 400, 600, 200
+FIT_STEPS, FIT_RESUME_STEPS, FIT_EVERY = 200, 300, 100
 # the other UNet-family 2D methods: kernel #1's forward (and backward)
 # launches per step of each
 METHOD_LAUNCHES = {"uamt": 1, "ict": 1, "deep_co_training": 1, "cps": 2,
@@ -343,7 +387,7 @@ CONSISTENCY_KEY = {"fixmatch": "unsup_loss",
 # masked consistency term is live (random init alone: every site's entropy
 # is above the threshold)
 UAMT_LOGIT_SCALE = 8.0
-CPS_FIT_STEPS, CPS_FIT_EVERY = 200, 100
+CPS_FIT_STEPS, CPS_FIT_EVERY = 100, 50
 # north-star config 4 (bench.py:176-178): a UNet and SwinUnet-tiny, batch
 # 16 = 8 labeled + 8 unlabeled at 224^2; kernel #1's launches a step of
 # each CNN+ViT method (one per model, forward and backward)
@@ -354,7 +398,7 @@ VIT_METHOD_LAUNCHES = {"cross_teaching": 2, "cnn_meet_vit": 2,
                        "contrastive_cross": 2}
 # adversarial_consistency trains SwinUnet as its ``model``
 VIT_KW = {"adversarial_consistency": {"model": "swin_unet"}}
-VIT_FIT_STEPS, VIT_FIT_EVERY = 200, 100
+VIT_FIT_STEPS, VIT_FIT_EVERY = 100, 50
 # each method's pseudo-supervision term, and its calls in a step, in
 # order: (i, j) is model i's input with model j's argmax as labels
 PSEUDO_TERM = {"cps": "_pseudo_ce", "cross_teaching": "_pseudo_dice",
@@ -369,7 +413,7 @@ PSEUDO_PAIRS = {"cps": ((0, 1), (1, 0)),
 FIXMATCH_FIT_STEPS = 100       # one validation, one checkpoint
 # the host data path: batches timed on the host, steps checked for
 # synchronising calls, fit iterations (one validation, one checkpoint)
-HOST_TIMED_BATCHES, HOST_CHECKED_STEPS, HOST_FIT_STEPS = 20, 3, 200
+HOST_TIMED_BATCHES, HOST_CHECKED_STEPS, HOST_FIT_STEPS = 20, 3, 100
 CC_FIT_STEPS = 100             # contrastive_cross at 224^2: one of each
 # north-star config 3 (BASELINE.md): SwinUnet-tiny on Prostate's 2
 # classes, fully supervised and uamt, batch 16 = 8 + 8 at 224^2; kernel
@@ -481,6 +525,58 @@ PAR_CLI_SPREAD = 10.0
 # tie); 13d: UNet3D's forward with its H axis split, at this shape
 PAR_WINDOW_FLIPS = 1e-5
 PAR_HALO_SHAPE, PAR_HALO_ATOL = (1, 1, 96, 192, 96), 1e-4
+
+# phase 14: K steps a call as CUDA graphs (``Engine.train_steps_scan`` on
+# the store, ``train_steps_fixed`` on one batch) against the eager steps on
+# copies of one state: (a) config 2's mean_teacher in chunks of K from step
+# 995, across its step-1000 graph key; (b) config 4's cross_teaching, one
+# chunk; (c) UAMT-3D at config 5 through ``train_steps_fixed`` (bench.py:
+# 296-336's record: one random batch, K = 10); steps timed each way in
+# calls of K; (d) every other store-path method at a reduced size, in
+# chunks where the step's host values turn; (e) config 2's fit through the
+# CLI's flags with --scan_steps K, resumed. Graphed-against-eager
+# differences are held to GRAPH_SPREAD times a second eager run's (the
+# card's step is not bit-reproducible)
+GRAPH_K, GRAPH_START, GRAPH_CHUNKS = 10, 995, 2
+GRAPH_TIMED, GRAPH_VIT_CHUNKS, GRAPH_VIT_TIMED = 30, 1, 20
+GRAPH_SPREAD = 10.0
+GRAPH_EAGER_RUNS = 3           # eager runs beside each graphed one
+# ... or this share of the largest value compared: at the reduced size
+# the eager runs often agree to a few float32 steps, and then a sporadic
+# change of atomic order moves the state by up to 5.7e-6 of it (urpc, in
+# one eager run of two as often as in the graphed one)
+GRAPH_FLOOR = 5e-5
+GRAPH_EAGER_PROFILED = 3       # eager steps in a profile (a busy share)
+UAMT_3D_LAUNCHES = 1           # kernel #1 each way a step of UAMT-3D
+# (d): 2D batch 8 = 4 + 4 at 64^2 from 96 synthetic slices (16 labeled),
+# SwinUnet thinned to two stages at window 4; 3D batch 4 = 2 + 2 at 32^3
+# from 12 blob volumes of 48^3 (4 labeled); the consistency ramp one epoch
+# long, so its staircase turns from exp(-5) (linear: 0) to 1 at step 150.
+# Chunks (first step, rows), each replayed on the graphs of the last: from
+# 0, where the EMA decay is 0, 1/2, 2/3, 3/4, 4/5 and contrastive_cross's
+# epoch of 16 / 4 steps turns at 4; across 150, with uamt's threshold; and
+# across the step-1000 graph key
+GRAPH_SMALL_CHUNKS = ((0, 5), (149, 3), (998, 3))
+GRAPH_SMALL_2D = dict(batch_size=8, labeled_bs=4, patch_size=(64, 64),
+                      labeled_slices_override=16, consistency_rampup=1.0,
+                      vit_kwargs=dict(embed_dim=24, depths=(2, 2),
+                                      num_heads=(1, 2), window_size=4))
+GRAPH_SMALL_SLICES = 96
+GRAPH_SMALL_3D = dict(patch_size=(32, 32, 32), labeled_num=4, total_num=12,
+                      consistency_rampup=1.0)
+GRAPH_SMALL_VOLUMES, GRAPH_SMALL_VOLUME = 12, (48, 48, 48)
+GRAPH_METHODS_2D = ("supervised", "uamt", "ict", "deep_co_training", "cps",
+                    "cct", "urpc", "fixmatch", "adversarial",
+                    "exam_student_teacher", "cnn_meet_vit", "tripleview",
+                    "adversarial_consistency", "contrastive_cross")
+GRAPH_METHODS_3D = ("supervised", "mean_teacher", "cps", "ict",
+                    "adversarial", "exam_student_teacher")
+# (e): config 2's mean_teacher fit, GRAPH_FIT_STEPS iterations validated
+# every GRAPH_FIT_VAL and checkpointed every GRAPH_FIT_CKPT, so K = 10's
+# chunks are cut to 10, 5, 5, 10; the graphed fit stops at GRAPH_FIT_STOP
+# and resumes from its checkpoint on the same engine, and traces steps
+# 11-20
+GRAPH_FIT_STEPS, GRAPH_FIT_STOP, GRAPH_FIT_VAL, GRAPH_FIT_CKPT = 30, 20, 15, 10
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -1323,12 +1419,6 @@ def run_vit_methods(card, strict):
     store = DeviceSliceStore(SyntheticACDC(), (VIT_PATCH, VIT_PATCH))
     print(f"ViT store: {tuple(store.images.shape)} built in "
           f"{time.perf_counter() - t0:.1f} s")
-    # the store's first gather at a new size builds its rotation tables
-    # (one host copy, cached): before the steps checked for synchronising
-    # calls
-    store.batch_fn(store.arrays(),
-                   torch.arange(VIT_BATCH, device=store.images.device),
-                   torch.Generator(device=store.images.device).manual_seed(0))
     stream = two_stream(2, VIT_BATCH, VIT_LABELED_BS).epochs()
     results = {}
     stores = {"default": store}
@@ -1772,7 +1862,7 @@ def run_fit(device, card, strict):
 
 def run_cps_fit(card, train_ds, val_ds):
     """Phase 7b: ``fit`` of cps (two UNets, two optimizers) on the same
-    data, 200 iterations with val and checkpoints every 100: the dual-model
+    data, 100 iterations with val and checkpoints every 50: the dual-model
     files (JAX ``engine.py:693-707``), kernel #1's launches (two forward
     and two backward an iteration), slices/s."""
     import torch
@@ -1795,9 +1885,10 @@ def run_cps_fit(card, train_ds, val_ds):
         raise SystemExit(f"cps fit: launches {launches} in "
                          f"{CPS_FIT_STEPS} iterations")
     files = sorted(os.listdir(snap))
-    want = ["unet_best_model1.ckpt", "unet_best_model2.ckpt",
-            "model_iter_100.ckpt", "model_iter_200.ckpt"]
-    want += [f"model{i}_iter_{k}.ckpt" for i in (1, 2) for k in (100, 200)]
+    saved = (CPS_FIT_STEPS - CPS_FIT_EVERY, CPS_FIT_STEPS)
+    want = ["unet_best_model1.ckpt", "unet_best_model2.ckpt"]
+    want += [f"model_iter_{k}.ckpt" for k in saved]
+    want += [f"model{i}_iter_{k}.ckpt" for i in (1, 2) for k in saved]
     for name in want:
         if name not in files:
             raise SystemExit(f"cps fit: no {name} in {files}")
@@ -1860,8 +1951,8 @@ def run_fixmatch_fit(card, train_ds, val_ds):
 def run_vit_fit(card, train_ds, val_ds):
     """Phase 7d: ``fit`` of cross_teaching at north-star config 4's size
     (a UNet and SwinUnet-tiny, batch 16 = 8 + 8 at 224^2) on the same
-    train slices and val volumes at 224^2, 200 iterations with val and
-    checkpoints every 100; model2 validated at ``patch_size2`` (224^2,
+    train slices and val volumes at 224^2, 100 iterations with val and
+    checkpoints every 50; model2 validated at ``patch_size2`` (224^2,
     JAX ``Engine.validate``): both slots validated each time, the
     dual-model files (``model1_``/``model2_`` prefixes, ``unet_best_model1``
     where model 1's Dice rose, no EMA files), two launches of each kernel
@@ -1954,7 +2045,7 @@ def run_host_fit(card, train_ds, val_ds, store_sps, strict):
     of 232 x 256 and the collate, one thread, as the prefetch thread runs
     it) and to pin it; a few mean-teacher steps from the pipeline's pinned
     batches (under sync debug mode "error" if ``strict``); then a
-    200-iteration mean-teacher ``fit`` with one validation and one
+    100-iteration mean-teacher ``fit`` with one validation and one
     checkpoint: no store, kernel #1 once each way an iteration, the
     sampler's state in the checkpoint, slices/s beside the store path's
     ``fit`` of this run."""
@@ -3306,11 +3397,6 @@ def run_zoo2d_steps(card, strict):
     store = DeviceSliceStore(SyntheticACDC(), (PATCH, PATCH))
     print(f"zoo2d store: {tuple(store.images.shape)} built in "
           f"{time.perf_counter() - t0:.1f} s")
-    # the store's first gather at a size builds its rotation tables (one
-    # host copy, cached): before the steps checked for synchronising calls
-    store.batch_fn(store.arrays(),
-                   torch.arange(BATCH, device=store.images.device),
-                   torch.Generator(device=store.images.device).manual_seed(0))
     results = {}
     for net in ZOO_2D:
         t0 = time.perf_counter()
@@ -3759,14 +3845,16 @@ def par_rank(rank, world, init_file, out_dir):
     torch.distributed.destroy_process_group()
 
 
-def par_cli_argv(snapshot_root):
-    """Config 2's mean-teacher fit through the CLI: validated at
-    :data:`PAR_CLI_EVERY`, checkpointed at its end."""
+def par_cli_argv(snapshot_root, steps=PAR_CLI_STEPS, val=PAR_CLI_EVERY,
+                 ckpt=PAR_CLI_STEPS):
+    """Config 2's mean-teacher fit through the CLI: ``steps`` iterations,
+    validated every ``val``, checkpointed every ``ckpt`` (by default at its
+    end)."""
     return ["--exp", "par", "--method", "mean_teacher", "--max_iterations",
-            str(PAR_CLI_STEPS), "--batch_size", str(BATCH), "--labeled_bs",
+            str(steps), "--batch_size", str(BATCH), "--labeled_bs",
             str(LABELED_BS), "--labeled_slices", str(ACDC_LABELED_SLICES),
             "--patch_size", str(PATCH), str(PATCH), "--val_every",
-            str(PAR_CLI_EVERY), "--ckpt_every", str(PAR_CLI_STEPS),
+            str(val), "--ckpt_every", str(ckpt),
             "--snapshot_root", snapshot_root]
 
 
@@ -3862,41 +3950,41 @@ def par_cli_diff(a, b):
     return equal, worst, exact_off
 
 
-def par_compare_cli(root):
-    """13b: the --distributed fit against the plain fit. Both must write the
-    same files. The card's training step is not bit-reproducible (the
-    bilinear upsample's backward adds with atomics, and
+def par_compare_cli(root, other="dist", steps=PAR_CLI_STEPS,
+                    what="phase 13b", how="torchrun --nproc_per_node 1 ... "
+                    "cli --distributed (nccl)"):
+    """13b: the fit under ``root/other`` (by default the --distributed one)
+    against the plain fit under ``root/plain``. Both must write the same
+    files. The card's training step is not bit-reproducible (the bilinear
+    upsample's backward adds with atomics, and
     ``torch.use_deterministic_algorithms`` refuses it), so a second plain
-    fit measures the run-to-run spread: every non-floating tensor (steps,
-    counts, the generator's state) must be equal, and the floating ones
-    bit-equal where the two plain fits are, else within
-    :data:`PAR_CLI_SPREAD` times their spread."""
+    fit (``root/again``) measures the run-to-run spread: every
+    non-floating tensor (steps, counts, the generator's state) must be
+    equal, and the floating ones bit-equal where the two plain fits are,
+    else within :data:`PAR_CLI_SPREAD` times their spread."""
     names, plain = par_cli_tensors(root, "plain")
     spread = {}
-    for other in ("again", "dist"):
-        other_names, tensors = par_cli_tensors(root, other)
-        if other_names != names or \
-                f"model_iter_{PAR_CLI_STEPS}.ckpt" not in names:
-            raise SystemExit(f"phase 13b: {other} wrote {other_names}, the "
+    for name in ("again", other):
+        other_names, tensors = par_cli_tensors(root, name)
+        if other_names != names or f"model_iter_{steps}.ckpt" not in names:
+            raise SystemExit(f"{what}: {name} wrote {other_names}, the "
                              f"plain fit {names}")
         if tensors.keys() != plain.keys():
-            raise SystemExit(f"phase 13b: {other}'s checkpoint keys differ")
-        spread[other] = par_cli_diff(plain, tensors)
-    equal, worst, exact_off = spread["dist"]
+            raise SystemExit(f"{what}: {name}'s checkpoint keys differ")
+        spread[name] = par_cli_diff(plain, tensors)
+    equal, worst, exact_off = spread[other]
     noise = spread["again"][1]
-    print(f"phase 13b: torchrun --nproc_per_node 1 ... cli --distributed "
-          f"(nccl), {PAR_CLI_STEPS} iterations: {len(names)} files as the "
+    print(f"{what}: {how}, {steps} iterations: {len(names)} files as the "
           f"plain fit's; {equal} of {len(plain)} checkpoint tensors "
           f"bit-equal to the plain fit's, largest abs difference {worst:.3e}"
           f"; a second plain fit: {spread['again'][0]} bit-equal, largest "
           f"{noise:.3e}")
     if exact_off or spread["again"][2]:
-        raise SystemExit(f"phase 13b: non-floating tensors differ: "
+        raise SystemExit(f"{what}: non-floating tensors differ: "
                          f"{exact_off or spread['again'][2]}")
     if worst > PAR_CLI_SPREAD * noise:
-        raise SystemExit(f"phase 13b: --distributed differs by {worst:.3e}, "
-                         f"over {PAR_CLI_SPREAD} x the plain fits' "
-                         f"{noise:.3e}")
+        raise SystemExit(f"{what}: {other} differs by {worst:.3e}, over "
+                         f"{PAR_CLI_SPREAD} x the plain fits' {noise:.3e}")
 
 
 def run_parallel(device, card):
@@ -3976,6 +4064,503 @@ def run_parallel(device, card):
         for r, got in enumerate(res)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: K steps a call as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def graph_copies(engine, state, n=3):
+    """``n`` independent copies of ``state`` (models, teachers, optimizers
+    with their counts, generator): fresh states loaded from a snapshot
+    each (one snapshot a copy: an optimizer keeps the tensors it loads)."""
+    from cvssl_tpu_torch.utils import checkpoint as ckpt
+    return [ckpt.load_state_tree(engine.init_state(), ckpt.device_snapshot(
+        ckpt.state_tree(state)).tree) for _ in range(n)]
+
+
+def graph_state_diff(a, b, group, kind):
+    """(the largest |a - b|, the largest |a|) over the floating
+    ``kind`` ("parameters" or "buffers") of two states' ``group``
+    ("models" or "teachers"), float64; raises if any other tensor
+    differs."""
+    worst = top = 0.0
+    for n, m in getattr(a, group).items():
+        other = dict(getattr(getattr(b, group)[n], f"named_{kind}")())
+        for k, v in getattr(m, f"named_{kind}")():
+            v, w = v.detach(), other[k].detach()
+            if v.is_floating_point():
+                worst = max(worst, float((v.double() - w.double()).abs()
+                                         .max()))
+                top = max(top, float(v.double().abs().max()))
+            elif not bool((v == w).all()):
+                raise SystemExit(f"{group} {n} {k}: not equal")
+    return worst, top
+
+
+def graph_metric_diff(a, b):
+    """(the largest |a - b|, the largest |a|) over the losses (keys with
+    "loss") of two lists of metrics."""
+    pairs = [(float(x[k]), float(y[k]))
+             for x, y in zip(a, b) for k in x if "loss" in k]
+    return (max(abs(x - y) for x, y in pairs),
+            max(abs(x) for x, _ in pairs))
+
+
+def graph_to_step(state, step):
+    """``state`` at ``step``: its step and every optimizer's count (each
+    run of a comparison jumps alike)."""
+    state.step = step
+    for o in state.optimizers.values():
+        o.count = step
+
+
+def check_graphed(what, runs, metrics, card):
+    """The graphed run against the eager ones: ``runs`` the graphed state
+    and ``GRAPH_EAGER_RUNS`` eager ones, ``metrics`` each one's metrics of
+    every call. Step, every optimizer's count and the generator's state
+    bit-equal. The models' parameters, their buffers (BatchNorm's
+    statistics), the teachers' parameters and buffers, and the losses
+    (the total among them, which the consistency weight scales), each
+    apart, so that one kind's noise widens no other's bound: the largest
+    difference of the graphed run from an eager one
+    within ``GRAPH_SPREAD`` times the largest difference between two eager
+    ones (the spread; one pair's difference of a scalar loss can be near
+    0 by chance), or within ``GRAPH_FLOOR`` of the largest magnitude
+    (eager runs that happen to agree give no spread). A replay that read
+    a step's host value (a weight, the EMA decay, a rate) frozen at its
+    capture moves the teachers or the losses past that."""
+    import itertools
+
+    import torch
+    g, eager = runs[0], runs[1:]
+    for e in eager:
+        counts = ({n: o.count for n, o in g.optimizers.items()},
+                  {n: o.count for n, o in e.optimizers.items()})
+        if g.step != e.step or counts[0] != counts[1]:
+            raise SystemExit(f"{what}: step {g.step} counts {counts[0]}, "
+                             f"eager {e.step} {counts[1]}")
+        if not torch.equal(g.generator.get_state(), e.generator.get_state()):
+            raise SystemExit(f"{what}: generator state differs from eager")
+    pairs = list(itertools.combinations(range(1, len(runs)), 2))
+    checks = []
+    for group in ("models", "teachers"):
+        for kind in ("parameters", "buffers") if getattr(g, group) else ():
+            checks.append((f"{group[:-1]} {kind}",
+                           max(graph_state_diff(g, e, group, kind)
+                               for e in eager),
+                           max(graph_state_diff(runs[i], runs[j], group,
+                                                kind)[0]
+                               for i, j in pairs)))
+    checks.append(("losses", max(graph_metric_diff(metrics[0], m)
+                                 for m in metrics[1:]),
+                   max(graph_metric_diff(metrics[i], metrics[j])[0]
+                       for i, j in pairs)))
+    print(f"{what}: step {g.step}, counts and generator bit-equal to "
+          f"{len(eager)} eager runs; largest diff graphed-eager, "
+          f"eager-eager: " + "; ".join(
+              f"{name} {d:.3e}, {spread:.3e}"
+              for name, (d, _), spread in checks)
+          + f"; last loss graphed {float(metrics[0][-1]['loss']):.6f} eager "
+          f"{float(metrics[1][-1]['loss']):.6f}, on {card}")
+    for name, (d, top), spread in checks:
+        bound = max(GRAPH_SPREAD * spread, GRAPH_FLOOR * top)
+        if d > bound:
+            raise SystemExit(f"{what}: {name} diff {d:.3e} graphed-eager "
+                             f"over {bound:.3e} ({GRAPH_SPREAD} x eager-"
+                             f"eager {spread:.3e}, or {GRAPH_FLOOR} of "
+                             f"{top:.3e})")
+
+
+def graph_against_eager(engine, what, card, chunks, batch=None, k=None,
+                        strict=True):
+    """Copies of a fresh state; ``chunks``, (first step, index rows)
+    pairs (with ``batch``, rows None: a call of ``k`` steps on it), each
+    from its first step (:func:`graph_to_step`), through
+    ``train_steps_scan`` (``train_steps_fixed``) on one, the same steps
+    eager on ``GRAPH_EAGER_RUNS`` (``train_steps``, ``train_step``); the
+    graphed calls under sync debug mode "error" if ``strict``; then
+    :func:`check_graphed`. Returns the graphed and the first eager state,
+    and the bytes the graphed calls left reserved on the card (the graphs'
+    memory pool, with the momentum buffers and static inputs they made)."""
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    runs = graph_copies(engine, engine.init_state(), 1 + GRAPH_EAGER_RUNS)
+    metrics = [[] for _ in runs]
+    before = dict(fcd.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    for start, rows in chunks:
+        graph_to_step(runs[0], start)
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if batch is None:
+                runs[0], m = engine.train_steps_scan(runs[0], rows)
+            else:
+                runs[0], m = engine.train_steps_fixed(runs[0], batch, k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        metrics[0].append(m)
+    host = {n: fcd.LAUNCHES[n] - before[n] for n in before}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved() - reserved
+    for i in range(1, len(runs)):
+        for start, rows in chunks:
+            graph_to_step(runs[i], start)
+            if batch is None:
+                runs[i], m = engine.train_steps(runs[i], rows)
+            else:
+                for _ in range(k):
+                    runs[i], m = engine.train_step(runs[i], batch)
+            metrics[i].append(m)
+    torch.cuda.synchronize()
+    print(f"{what}: chunks from steps {[c[0] for c in chunks]}, "
+          f"{len(engine._graphs)} graph(s) captured, "
+          f"{pool / 2 ** 30:.3f} GiB left reserved by the graphed calls; "
+          f"kernel #1's host launches over them {host} (warm-ups and "
+          f"captures; a replay launches from the card)"
+          f"{', under sync debug mode error' if strict else ''}")
+    check_graphed(what, runs, metrics, card)
+    return runs[0], runs[1], pool
+
+
+def time_calls(fn, calls):
+    """Wall seconds of ``calls`` calls of ``fn`` (each returns (state,
+    metrics)), the last one's loss read."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        _, m = fn()
+    float(m["loss"])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def graph_profile(fn, steps):
+    """``fn()`` (``steps`` steps) under ``torch.profiler``: (device busy ms
+    a step, the busy share of the wall time with the profiler on, kernel
+    #1's device kernels by name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == cuda]
+    total_us = sum(e.self_device_time_total for e in events)
+    counts = {k: sum(e.count for e in events if f"{k}_kernel" in e.key)
+              for k in ("ce_dice_fwd", "ce_dice_bwd")}
+    return total_us / steps / 1e3, total_us / 1e6 / wall, counts
+
+
+def graph_timed(what, engine, card, g, e, pool, rows_fn, calls, k, unit,
+                batch, per_step, fixed=None):
+    """Samples/s and ms/step over ``calls`` calls of ``k`` steps graphed
+    (``train_steps_scan``, or ``train_steps_fixed`` on ``fixed``) and
+    eager (``train_steps``, or ``train_step``), with the peak memory
+    allocated in each window (the graphs' ``pool`` is reserved beside the
+    graphed window's); returns a function that profiles a graphed call of
+    ``k`` steps and ``GRAPH_EAGER_PROFILED`` eager steps (run after every
+    timed window: a profiler session slows later launches), checks kernel
+    #1's device kernels in the graphed call (``per_step`` + as many a
+    step) and prints the busy shares."""
+    import torch
+
+    def graphed():
+        if fixed is None:
+            return engine.train_steps_scan(g, rows_fn(k))
+        return engine.train_steps_fixed(g, fixed, k)
+
+    def eager(n=k):
+        if fixed is None:
+            return engine.train_steps(e, rows_fn(n))
+        for _ in range(n):
+            _, m = engine.train_step(e, fixed)
+        return e, m
+    out = {}
+    for name, fn in (("graphed", graphed), ("eager", eager)):
+        torch.cuda.reset_peak_memory_stats()
+        dt = time_calls(fn, calls)
+        out[name] = {"s_per_step": dt / (calls * k),
+                     "rate": calls * k * batch / dt,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"{what}: {out['graphed']['rate']:.2f} {unit}/s graphed "
+          f"({out['graphed']['s_per_step'] * 1e3:.2f} ms/step), "
+          f"{out['eager']['rate']:.2f} {unit}/s eager "
+          f"({out['eager']['s_per_step'] * 1e3:.2f} ms/step), over "
+          f"{calls * k} steps each in calls of {k}; peak memory allocated "
+          f"{out['graphed']['peak_gib']:.3f} GiB graphed (and the graphed "
+          f"calls' {pool / 2 ** 30:.3f} GiB reserved), "
+          f"{out['eager']['peak_gib']:.3f} GiB eager, on {card}")
+
+    def profiled():
+        for name, fn, n in (
+                ("graphed", graphed, k),
+                ("eager", lambda: eager(GRAPH_EAGER_PROFILED),
+                 GRAPH_EAGER_PROFILED)):
+            busy, share, counts = graph_profile(fn, n)
+            out[name].update(busy_ms_per_step=busy, busy_share=share,
+                             kernels=counts)
+            print(f"{what} {name}, {n} steps profiled: device "
+                  f"busy {busy:.2f} ms/step, busy share {share:.3f} with the "
+                  f"profiler on, estimated without it "
+                  f"{busy / 1e3 / out[name]['s_per_step']:.3f}; kernel #1's "
+                  f"device kernels {counts}, on {card}")
+        want = {n: per_step * k for n in ("ce_dice_fwd", "ce_dice_bwd")}
+        if out["graphed"]["kernels"] != want:
+            raise SystemExit(f"{what}: kernel #1's device kernels in a "
+                             f"graphed call {out['graphed']['kernels']}, not "
+                             f"{want}")
+        return out
+    return profiled
+
+
+def graph_small_2d(method):
+    """(d)'s 2D configuration of ``method``: batch 8 = 4 + 4 at 64^2, the
+    SwinUnet slots thinned (``GRAPH_SMALL_2D``)."""
+    return method_config(method, **GRAPH_SMALL_2D,
+                         **VIT_KW.get(method, {}), **METHOD_KW.get(method, {}))
+
+
+def run_graph_small(card):
+    """14d: every other store-path method, 2D and 3D, at a reduced size:
+    the graphed chunks of ``GRAPH_SMALL_CHUNKS`` under sync debug mode
+    "error" against as many eager steps, three times."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import (DeviceSliceStore,
+                                                   DeviceVolumeStore)
+    from cvssl_tpu_torch.data.sampler import TwoStreamBatchSampler
+    from cvssl_tpu_torch.data.synthetic import DeviceBlobVolumes
+    from cvssl_tpu_torch.train.engine import Engine
+
+    stores = {}
+    lb = GRAPH_SMALL_2D["labeled_slices_override"]
+    stream = TwoStreamBatchSampler(
+        list(range(lb)), list(range(lb, GRAPH_SMALL_SLICES)),
+        GRAPH_SMALL_2D["batch_size"],
+        GRAPH_SMALL_2D["batch_size"] - GRAPH_SMALL_2D["labeled_bs"],
+        rng=np.random.default_rng(16)).epochs()
+
+    def chunks(stream):
+        return [(start, [next(stream) for _ in range(n)])
+                for start, n in GRAPH_SMALL_CHUNKS]
+    for method in GRAPH_METHODS_2D:
+        t0 = time.perf_counter()
+        engine = Engine(graph_small_2d(method))
+        mode = engine.method.transform
+        if mode not in stores:
+            stores[mode] = DeviceSliceStore(
+                SyntheticACDC(GRAPH_SMALL_SLICES), (64, 64), mode=mode)
+        engine.attach_store(stores[mode])
+        graph_against_eager(engine, f"phase 14d {method} 2D", card,
+                            chunks(stream))
+        print(f"phase 14d {method} 2D: {time.perf_counter() - t0:.1f} s")
+        del engine
+    del stores
+    store = DeviceVolumeStore(DeviceBlobVolumes(
+        GRAPH_SMALL_VOLUMES, GRAPH_SMALL_VOLUME, num_classes=CLASSES_3D,
+        device="cuda"), GRAPH_SMALL_3D["patch_size"])
+    stream = two_stream_3d(17, GRAPH_SMALL_3D["labeled_num"],
+                           GRAPH_SMALL_3D["total_num"]).epochs()
+    for method in GRAPH_METHODS_3D:
+        t0 = time.perf_counter()
+        engine = Engine(config_3d(method, **GRAPH_SMALL_3D))
+        engine.attach_store(store)
+        graph_against_eager(engine, f"phase 14d {method} 3D", card,
+                            chunks(stream))
+        print(f"phase 14d {method} 3D: {time.perf_counter() - t0:.1f} s")
+        del engine
+    torch.cuda.empty_cache()
+
+
+def run_graph_fit(card):
+    """14e: config 2's mean_teacher ``fit`` with the CLI's flags
+    (:func:`par_cli_argv` at ``GRAPH_FIT_*``) and ``--scan_steps``
+    ``GRAPH_K``: chunks cut at the validations and checkpoints, validation
+    in eval mode between replays, checkpoints taken while the graphs
+    live; stopped at ``GRAPH_FIT_STOP`` and resumed from its checkpoint on
+    the same engine, which drops its graphs and their pool for the new
+    state and captures anew; steps 11-20 traced (``profile_dir``).
+    Against two fits through ``cli.main`` with ``--scan_steps 1``: the
+    same step, counts and generator state, the same files, and the
+    checkpoints' floating tensors within ``PAR_CLI_SPREAD`` times the two
+    plain fits' spread (:func:`par_compare_cli`). Kernel #1: 2 + 2 host
+    launches a capture (its warm-up step and the capture itself) and none
+    a replay, and one forward and one backward device kernel a step in
+    the trace. Returns those device kernels."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train import cli
+    from cvssl_tpu_torch.train.engine import Engine, fit
+    from cvssl_tpu_torch.utils.profiler import StepWindowProfiler
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_graph_fit_")
+
+    def argv(name, k):
+        return par_cli_argv(os.path.join(root, name), GRAPH_FIT_STEPS,
+                            GRAPH_FIT_VAL, GRAPH_FIT_CKPT) + [
+                                "--scan_steps", str(k)]
+
+    def data():
+        return (SyntheticACDC(), two_stream(1337),
+                blob_volumes(n=PAR_CLI_VAL))
+    plain = [cli.main(argv(name, 1), data=data())
+             for name in ("plain", "again")]
+    prof_dir = os.path.join(root, "profile")
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        argv("graph", GRAPH_K) + ["--profile_dir", prof_dir]))
+    window = StepWindowProfiler(prof_dir)
+    engine = Engine(cfg)
+    before = dict(fcd.LAUNCHES)
+    first = fit(cfg, engine=engine, max_steps=GRAPH_FIT_STOP, data=data())
+    graphs = len(engine._graphs)
+    res = fit(dataclasses.replace(cfg, profile_dir=None), engine=engine,
+              data=data())
+    host = {n: fcd.LAUNCHES[n] - before[n] for n in before}
+    g, p = res["state"], plain[0]["state"]
+    print(f"phase 14e: fit --scan_steps {GRAPH_K}, {first['iterations']} "
+          f"iterations, then resumed to {res['iterations']} on the same "
+          f"engine: {graphs} graph(s) before the resume, "
+          f"{len(engine._graphs)} after; kernel #1's host launches {host}; "
+          f"{first['slices_per_sec']:.2f} slices/s (steps 11-20 profiled) "
+          f"and {res['slices_per_sec']:.2f} (a capture among 10 steps), "
+          f"--scan_steps 1: {plain[0]['slices_per_sec']:.2f}, "
+          f"{plain[1]['slices_per_sec']:.2f} slices/s (all with validation "
+          f"and checkpoints, not throughputs), on {card}")
+    if (first["iterations"], res["iterations"]) != (GRAPH_FIT_STOP,
+                                                    GRAPH_FIT_STEPS):
+        raise SystemExit(f"phase 14e: iterations {first['iterations']}, "
+                         f"{res['iterations']}")
+    if graphs != 1 or len(engine._graphs) != 1 or \
+            any(n != 4 for n in host.values()):
+        raise SystemExit(f"phase 14e: {graphs} and {len(engine._graphs)} "
+                         f"graphs, host launches {host}: not one graph "
+                         "captured before and one after the resume")
+    for other in plain:
+        o = other["state"]
+        if g.step != o.step or {n: x.count for n, x in g.optimizers.items()} \
+                != {n: x.count for n, x in o.optimizers.items()} or \
+                not torch.equal(g.generator.get_state(),
+                                o.generator.get_state()):
+            raise SystemExit("phase 14e: step, counts or generator state "
+                             "differ from the --scan_steps 1 fit's")
+    traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise SystemExit(f"phase 14e: traces {traces} in {prof_dir}")
+    with open(traces[0]) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    counts = {k: sum(f"{k}_kernel" in e.get("name", "") for e in kernels)
+              for k in fcd.LAUNCHES}
+    steps = window.stop - window.start
+    print(f"phase 14e: kernel #1's device kernels {counts} in the trace of "
+          f"steps {window.start + 1}-{window.stop} (graph replays), on "
+          f"{card}")
+    if any(n != steps for n in counts.values()):
+        raise SystemExit(f"phase 14e: kernel #1's device kernels {counts} "
+                         f"in the trace, not {steps} each")
+    par_compare_cli(root, "graph", GRAPH_FIT_STEPS, "phase 14e",
+                    f"fit --scan_steps {GRAPH_K} resumed at "
+                    f"{GRAPH_FIT_STOP}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 14e: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def run_graphs(card):
+    """Phase 14: ``Engine.train_steps_scan`` and ``train_steps_fixed`` as
+    CUDA graph replays against the eager steps (see the module's
+    docstring). Returns kernel #1's device kernels in each graphed call
+    profiled, keyed as the kernels line keys the methods."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
+    from cvssl_tpu_torch.train.engine import Engine
+
+    t_phase = t0 = time.perf_counter()
+    # (a) config 2's main path, across the step-1000 graph key
+    cfg = method_config("mean_teacher")
+    main = Engine(cfg)
+    main.attach_store(DeviceSliceStore(SyntheticACDC(), cfg.patch_size))
+    stream = two_stream(14).epochs()
+
+    def rows(k=GRAPH_K):
+        return [next(stream) for _ in range(k)]
+    g, e, pool = graph_against_eager(
+        main, "phase 14a mean_teacher config 2", card,
+        [(GRAPH_START + c * GRAPH_K, rows()) for c in range(GRAPH_CHUNKS)])
+    if len(main._graphs) != 2:
+        raise SystemExit(f"phase 14a: {len(main._graphs)} graphs across "
+                         "step 1000, not 2")
+    prof_a = graph_timed("phase 14a mean_teacher config 2", main, card, g, e,
+                         pool, rows, GRAPH_TIMED // GRAPH_K, GRAPH_K,
+                         "slices", BATCH, 1)
+    print(f"phase 14a: {time.perf_counter() - t0:.1f} s")
+
+    # (b) config 4's cross_teaching: a UNet and SwinUnet-tiny, host-bound
+    t0 = time.perf_counter()
+    vit = Engine(vit_config("cross_teaching"))
+    vit.attach_store(DeviceSliceStore(SyntheticACDC(),
+                                      (VIT_PATCH, VIT_PATCH)))
+    vstream = two_stream(15, VIT_BATCH, VIT_LABELED_BS).epochs()
+
+    def vrows(k=GRAPH_K):
+        return [next(vstream) for _ in range(k)]
+    vg, ve, pool = graph_against_eager(
+        vit, "phase 14b cross_teaching config 4", card,
+        [(GRAPH_START + c * GRAPH_K, vrows())
+         for c in range(GRAPH_VIT_CHUNKS)])
+    prof_b = graph_timed("phase 14b cross_teaching config 4", vit, card, vg,
+                         ve, pool, vrows, GRAPH_VIT_TIMED // GRAPH_K,
+                         GRAPH_K, "slices", VIT_BATCH,
+                         VIT_METHOD_LAUNCHES["cross_teaching"])
+    print(f"phase 14b: {time.perf_counter() - t0:.1f} s")
+
+    # (c) UAMT-3D at config 5 through train_steps_fixed on one random batch
+    t0 = time.perf_counter()
+    u3 = Engine(config_3d("uamt"))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    batch = {"image": torch.randn((BATCH_3D, 1) + (PATCH_3D,) * 3,
+                                  generator=gen, device="cuda"),
+             "label": torch.randint(0, CLASSES_3D, (BATCH_3D,)
+                                    + (PATCH_3D,) * 3, generator=gen,
+                                    device="cuda", dtype=torch.uint8)}
+    ug, ue, pool = graph_against_eager(
+        u3, "phase 14c uamt 3D config 5", card, [(GRAPH_START, None)],
+        batch=batch, k=GRAPH_K)
+    prof_c = graph_timed("phase 14c uamt 3D config 5", u3, card, ug, ue,
+                         pool, None, GRAPH_TIMED // GRAPH_K, GRAPH_K,
+                         "volumes", BATCH_3D, UAMT_3D_LAUNCHES, fixed=batch)
+    print(f"phase 14c: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    profiles = {"mean_teacher_graphed": prof_a(),
+                "cross_teaching_graphed": prof_b(),
+                "uamt_3d_graphed": prof_c()}
+    del main, vit, u3, g, e, vg, ve, ug, ue, prof_a, prof_b, prof_c
+    torch.cuda.empty_cache()
+    print(f"phase 14 profiles: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    run_graph_small(card)
+    print(f"phase 14d: {time.perf_counter() - t0:.1f} s")
+    fit_kernels = run_graph_fit(card)
+    print(f"phase 14 (graphs): {time.perf_counter() - t_phase:.1f} s")
+    return {**{m: {"launches": p["graphed"]["kernels"]}
+               for m, p in profiles.items()},
+            "mean_teacher_graphed_fit": {"launches": fit_kernels}}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4016,6 +4601,11 @@ def main(argv=None) -> int:
         "ranks on the card against one process, the --distributed CLI fit "
         "under torchrun), then stop without the result line")
     parser.add_argument(
+        "--graph-only", dest="only_graph", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 14 (K steps "
+        "a call as CUDA graphs against the eager steps), then stop "
+        "without the result line")
+    parser.add_argument(
         "--par-cli-fit", metavar="DIR", default=None,
         help="phase 13b's child: the CLI's config-2 fit into DIR (with "
         "--distributed, under torchrun); phase 13 starts it")
@@ -4046,7 +4636,7 @@ def main(argv=None) -> int:
         return 0
     sources = ([] if (args.only_3d or args.only_9 or args.only_vit3d
                       or args.only_zoo2d or args.only_profile
-                      or args.only_parallel)
+                      or args.only_parallel or args.only_graph)
                else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
@@ -4118,6 +4708,11 @@ def main(argv=None) -> int:
         print("chip_smoke --parallel-only: phase 13 passed; no result line "
               "(the other phases did not run)")
         return 0
+    if args.only_graph:
+        run_graphs(smi)
+        print("chip_smoke --graph-only: phase 14 passed; no result line "
+              "(the other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -4146,6 +4741,7 @@ def main(argv=None) -> int:
     methods.update(r10["methods"])
     methods.update(run_zoo2d(smi, strict))
     methods.update(run_parallel(device, smi))
+    methods.update(run_graphs(smi))
     # last: the profiler's session slows every later launch
     methods["mean_teacher_profiled_fit"] = {
         "launches": run_profiled_fit(device, smi)}

@@ -130,9 +130,16 @@ def _shear_tables(h: int, w: int):
 
 @functools.lru_cache(maxsize=8)
 def _shear_tables_on(h: int, w: int, device: torch.device):
-    row, col = _shear_tables(h, w)
-    return (torch.from_numpy(row).to(device, torch.int64),
-            torch.from_numpy(col).to(device, torch.int64))
+    """:func:`_shear_tables` as int64 on ``device``, cached; on the card
+    copied from pinned memory without blocking the host, so that a step
+    that builds them makes no synchronising call."""
+    out = []
+    for table in _shear_tables(h, w):
+        t = torch.from_numpy(table.astype(np.int64))
+        if torch.device(device).type == "cuda":
+            t = t.pin_memory()
+        out.append(t.to(device, non_blocking=True))
+    return tuple(out)
 
 
 def _cyclic_shift(arrs, s: torch.Tensor, axis: int):

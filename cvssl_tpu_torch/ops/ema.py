@@ -1,7 +1,7 @@
 """Mean-teacher EMA (port of ``cvssl_tpu/ops/ema.py``)."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import numpy as np
 import torch
@@ -17,12 +17,16 @@ def ema_decay_schedule(step: int, alpha: float = 0.99) -> float:
 
 @torch.no_grad()
 def ema_update(ema: Sequence[torch.Tensor], new: Sequence[torch.Tensor],
-               decay: float) -> None:
+               decay: Union[float, torch.Tensor]) -> None:
     """ema <- decay * ema + (1 - decay) * new, in place over two matching
-    lists of tensors. JAX: ``ema_update`` (which returns a new tree)."""
+    lists of tensors, as JAX's three operations. ``decay`` is a float or a
+    0-d float32 tensor on the tensors' device (the engine's step table, so
+    that a CUDA graph of the step reads each replay's decay from the card;
+    1 - decay is exact in float32 for every decay of the schedule). JAX:
+    ``ema_update`` (which returns a new tree)."""
     ema = list(ema)
     torch._foreach_mul_(ema, decay)
-    torch._foreach_add_(ema, list(new), alpha=1.0 - decay)
+    torch._foreach_add_(ema, torch._foreach_mul(list(new), 1.0 - decay))
 
 
 def mean_teacher_update(ema: Sequence[torch.Tensor],

@@ -42,8 +42,13 @@ from cvssl_tpu_torch.ops import _cuda_build, losses
 THREADS = 256      # threads per block, as in the kernels
 MAX_CLASSES = 16   # the kernels exist for 2 <= C <= 16
 
-# launches of each kernel, for a run to show that it went through them
 LAUNCHES = {"ce_dice_fwd": 0, "ce_dice_bwd": 0}
+"""Launches of each kernel, for a run to show that it went through them:
+the wrapper adds one each time it launches its kernel from the host. A
+CUDA graph capture of a step counts once, when the launch is recorded
+(and nothing runs); its replays launch the kernel on the card with no
+host call and count nothing here, so a graphed run counts its kernels in
+a profile of the replays."""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C interface of csrc/fused_ce_dice.cu: {function: (restype, argtypes)}

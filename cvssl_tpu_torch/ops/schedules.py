@@ -1,7 +1,7 @@
 """Optimizers and LR schedules (port of ``cvssl_tpu/ops/schedules.py``)."""
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -55,7 +55,15 @@ class ReferenceSGD(torch.optim.SGD):
     schedule count). JAX: ``schedules.reference_sgd``.
 
     Weight decay is added to the gradient before momentum, in torch's SGD as
-    in the optax chain (``add_decayed_weights`` before ``trace``)."""
+    in the optax chain (``add_decayed_weights`` before ``trace``). The
+    update is ``p - lr * buf`` with ``lr`` a 0-d float32 tensor on the
+    parameters' device, two roundings as optax's ``scale`` then
+    ``apply_updates`` (torch's SGD, which takes ``alpha=-lr`` and so reads a
+    tensor ``lr`` on the host, does the same under ``torch.compile``): the
+    engine's step passes the row of its step table, so that a captured
+    CUDA graph reads each replay's rate from the card. ``count`` stays a
+    host integer, advanced by each :meth:`step`; ``param_groups``' "lr"
+    keeps the base rate and is not read."""
 
     def __init__(self, params: Iterable[torch.Tensor], base_lr: float,
                  max_iterations: int, momentum: float = 0.9,
@@ -65,12 +73,38 @@ class ReferenceSGD(torch.optim.SGD):
         self.schedule = poly_lr(base_lr, max_iterations, power)
         self.count = 0
 
+    def lr_at(self, count: int) -> float:
+        """The learning rate of the update after ``count`` updates."""
+        return self.schedule(count)
+
     @torch.no_grad()
-    def step(self, closure=None):
-        lr = self.schedule(self.count)
+    def step(self, closure=None, lr: Optional[torch.Tensor] = None):
+        """One update at ``lr`` (a 0-d float32 tensor on the parameters'
+        device; None: :meth:`lr_at` of ``count``, written there from the
+        host). The first update makes the momentum buffers, as torch's SGD
+        does, so a CUDA graph of the step is captured after one."""
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
         for group in self.param_groups:
-            group["lr"] = lr
-        loss = super().step(closure)
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            if lr is None:
+                lr = torch.full((), self.lr_at(self.count),
+                                dtype=torch.float32, device=params[0].device)
+            grads = torch._foreach_add([p.grad for p in params], params,
+                                       alpha=group["weight_decay"])
+            bufs = [self.state[p].get("momentum_buffer") for p in params]
+            if any(b is None for b in bufs):
+                bufs = [g.detach().clone() for g in grads]
+                for p, b in zip(params, bufs):
+                    self.state[p]["momentum_buffer"] = b
+            else:
+                torch._foreach_mul_(bufs, group["momentum"])
+                torch._foreach_add_(bufs, grads)
+            torch._foreach_sub_(params, torch._foreach_mul(bufs, lr))
         self.count += 1
         return loss
 
@@ -93,15 +127,25 @@ class DiscriminatorAdam(torch.optim.Adam):
     (``train_adversarial_network_2D.py:123``). ``count`` is the number of
     updates applied, as ``ReferenceSGD``'s. JAX:
     ``schedules.discriminator_adam`` (``optax.adam``; torch's Adam takes
-    the same bias-corrected step)."""
+    the same bias-corrected step).
+
+    On the card it is ``capturable``: its step count lives there and the
+    bias corrections are computed there in float32, as optax computes them
+    (on the CPU torch computes them in float64 on the host), so that a CUDA
+    graph of the step can hold it. The rate is constant, so :meth:`step`
+    takes no ``lr``."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-4,
                  betas=(0.9, 0.99)):
-        super().__init__(params, lr=lr, betas=betas, eps=1e-8)
+        params = list(params)
+        super().__init__(params, lr=lr, betas=betas, eps=1e-8,
+                         capturable=any(p.is_cuda for p in params))
         self.count = 0
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, lr: Optional[torch.Tensor] = None):
+        if lr is not None:
+            raise ValueError("DiscriminatorAdam: the rate is constant")
         loss = super().step(closure)
         self.count += 1
         return loss

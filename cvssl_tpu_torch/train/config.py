@@ -83,7 +83,7 @@ class TrainConfig:
     # has no s2d grouped-logits losses, the only case the JAX package turns
     # it off for. None or True; False raises.
     fused_loss: Optional[bool] = None
-    scan_steps: int = 1                # steps per Engine.train_steps call
+    scan_steps: int = 1                # >1: K steps a train_steps_scan call
     log_every: int = 20
     val_every: int = 200
     ckpt_every: int = 3000

@@ -1,8 +1,9 @@
 """The training engine (port of ``cvssl_tpu/train/engine.py``: state
-construction, the step body, the device-store path, a K-step loop standing
-in for ``train_steps_scan``, the host pipeline's batches, the eval-mode
-predictors, 2D validation and 3D sliding-window validation, and the
-``fit`` loop with its validation and checkpoint cadence, in 2D and 3D).
+construction, the step body, the device-store path, K steps a call
+(``train_steps_scan``, ``train_steps_fixed``), the host pipeline's
+batches, the eval-mode predictors, 2D validation and 3D sliding-window
+validation, and the ``fit`` loop with its validation and checkpoint
+cadence, in 2D and 3D).
 
 One step: zero the gradients, run the method's loss through a ``StepCtx``
 (student and teacher forwards in train mode, each model under bfloat16
@@ -12,7 +13,14 @@ parameters with the decay of the step before its increment
 (``engine.py:236``), and the same EMA along the method's
 ``param_ema_map`` (a model's parameters toward another's, JAX
 ``engine.py:240-246``). Adversarial methods run a second phase before any
-optimizer steps (JAX ``engine.py:146-229``).
+optimizer steps (JAX ``engine.py:146-229``). The step's host values (the
+methods' ramps, the EMA decay, the learning rates) reach it as 0-d float32
+tensors on the device (``Engine.step_table``).
+
+K steps a call, JAX's one XLA program of a ``lax.scan``, are on the card
+replays of a CUDA graph of the whole step, one graph per branch of the
+method's Python code (``Method.graph_key``), with the same body as the
+eager step; on the CPU and in a process group they are eager steps.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``; on a
 machine without CUDA, ``Engine(cfg)`` raises.
@@ -94,6 +102,18 @@ class Engine:
         # 3D: one sliding-window evaluator per (model slot, patch), which
         # keeps its count maps across validations
         self._evaluators: Dict[tuple, val3d.SlidingWindowEvaluator] = {}
+        # K steps a call (``train_steps_scan``/``_fixed``): CUDA graphs of
+        # the step on the card in one process, by (inputs, graph key), their
+        # static inputs, the state they hold (``_check_graphs``), one
+        # memory pool and the capture stream
+        self.graphed = self.device.type == "cuda" and not \
+            self.mesh.distributed
+        self._logged_eager = False
+        self._graphs: Dict[tuple, tuple] = {}
+        self._static: Dict[tuple, dict] = {}
+        self._graph_state = None
+        self._pool = None
+        self._capture_stream = None
 
     # ------------------------------------------------------------------
     # state construction
@@ -144,29 +164,46 @@ class Engine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def train_step(self, state: TrainState, batch: dict):
-        """One step on a batch already on the device: {"image": (B, 1, H, W)
-        float32, "label": (B, H, W) int} (and the ``weak_strong`` store's
-        keys). Updates ``state`` in place and returns (state, metrics);
-        metrics are device tensors (no sync).
+    def step_table(self, state: TrainState, k: int):
+        """The host values of the next ``k`` steps: (names, (k, n) float32
+        array). Row r holds the method's ``step_scalars`` of step
+        ``state.step + r``, the EMA decay of that step (``ema_decay``) and
+        the learning rate of each scheduled optimizer after ``count + r``
+        updates (``lr_<slot>``): today's numpy values, bit for bit."""
+        scheduled = {n: o for n, o in state.optimizers.items()
+                     if hasattr(o, "lr_at")}
+        rows = []
+        for r in range(k):
+            t = state.step + r
+            row = dict(self.method.step_scalars(t))
+            row["ema_decay"] = ema_decay_schedule(t, self.cfg.ema_decay)
+            for n, o in scheduled.items():
+                row[f"lr_{n}"] = o.lr_at(o.count + r)
+            rows.append(row)
+        names = tuple(rows[0])
+        return names, np.array([[row[n] for n in names] for row in rows],
+                               np.float32)
 
-        With ``adversarial_models``, two phases before any optimizer step,
-        as JAX's step: the generator phase (``loss``) with those models
-        frozen, so gradients flow through them into the segmenter but none
-        is kept for their own parameters (JAX differentiates the main
-        parameters only); then the discriminator phase (``loss_d``), which
-        sees the segmenter's weights before the update and its BatchNorm
-        running statistics after the generator phase's forwards.
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; on the card from pinned
+        memory without blocking the host (a fresh pinned buffer per call,
+        which the copy keeps until it is done)."""
+        t = torch.from_numpy(array)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
-        In a process group each model call is split over the ranks, and
-        the gradients of both phases are averaged over the ranks before
-        any optimizer step (``parallel/mesh.py``: each rank holds W times
-        its rows' share of the gradient of the same loss)."""
+    def _step(self, state: TrainState, batch: dict, names,
+              scalars: torch.Tensor):
+        """The step body, one for every entry point and for the CUDA
+        graphs: ``scalars`` (n,) float32 on the device is the step's row
+        of :meth:`step_table` with ``names``."""
+        scal = dict(zip(names, scalars.unbind()))
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
         ctx = StepCtx(self.cfg, state.models, state.teachers,
                       state.generator, state.step, self.model_dtypes,
-                      mesh=self.mesh)
+                      mesh=self.mesh, scalars=scal)
         adversarial = [state.models[n]
                        for n in self.method.adversarial_models]
         for m in adversarial:
@@ -183,9 +220,9 @@ class Engine:
             metrics = {**metrics, **d_metrics, "loss_d": d_loss}
         pmesh.all_reduce_grads(self.mesh, [
             p for m in state.models.values() for p in m.parameters()])
-        for opt in state.optimizers.values():
-            opt.step()
-        decay = ema_decay_schedule(state.step, self.cfg.ema_decay)
+        for name, opt in state.optimizers.items():
+            opt.step(lr=scal.get(f"lr_{name}"))
+        decay = scal["ema_decay"]
         for name in self.method.teacher_names:
             ema_update(state.teachers[name].parameters(),
                        state.models[name].parameters(), decay)
@@ -199,16 +236,44 @@ class Engine:
         return state, {k: v.detach() if torch.is_tensor(v) else v
                        for k, v in metrics.items()}
 
+    def train_step(self, state: TrainState, batch: dict):
+        """One step on a batch already on the device: {"image": (B, 1, H, W)
+        float32, "label": (B, H, W) int} (and the ``weak_strong`` store's
+        keys). Updates ``state`` in place and returns (state, metrics);
+        metrics are device tensors (no sync).
+
+        One step: zero the gradients, run the method's loss through a
+        ``StepCtx`` with the step's host values (:meth:`step_table`, one
+        row copied to the device without blocking), backward, each
+        optimizer at its rate of the table, then the EMAs at the table's
+        decay.
+
+        With ``adversarial_models``, two phases before any optimizer step,
+        as JAX's step: the generator phase (``loss``) with those models
+        frozen, so gradients flow through them into the segmenter but none
+        is kept for their own parameters (JAX differentiates the main
+        parameters only); then the discriminator phase (``loss_d``), which
+        sees the segmenter's weights before the update and its BatchNorm
+        running statistics after the generator phase's forwards.
+
+        In a process group each model call is split over the ranks, and
+        the gradients of both phases are averaged over the ranks before
+        any optimizer step (``parallel/mesh.py``: each rank holds W times
+        its rows' share of the gradient of the same loss)."""
+        names, table = self.step_table(state, 1)
+        return self._step(state, batch, names, self._upload(table[0]))
+
     # -- device-store path: only indices cross the host boundary ----------
     def attach_store(self, store):
         self.store = store
+        self._drop_graphs()
 
     def _indices(self, indices: Sequence[int]) -> torch.Tensor:
-        idx = torch.from_numpy(np.asarray(indices, np.int64))
-        if self.device.type == "cuda":
-            # pinned + non_blocking: the host does not wait for the card
-            return idx.pin_memory().to(self.device, non_blocking=True)
-        return idx
+        return self._upload(np.asarray(indices, np.int64))
+
+    def _store_batch(self, state: TrainState, indices: torch.Tensor):
+        return self.store.batch_fn(self.store.arrays(), indices,
+                                   state.generator)
 
     def train_step_indices(self, state: TrainState, indices):
         """One step from the attached store: gather + augmentation on the
@@ -217,9 +282,8 @@ class Engine:
         generator."""
         if self.store is None:
             raise RuntimeError("attach_store() first")
-        batch = self.store.batch_fn(self.store.arrays(),
-                                    self._indices(indices), state.generator)
-        return self.train_step(state, batch)
+        return self.train_step(state, self._store_batch(
+            state, self._indices(indices)))
 
     def host_batch(self, batch: dict) -> dict:
         """A batch of the host pipeline (numpy arrays, or tensors in pinned
@@ -229,13 +293,202 @@ class Engine:
                 for k, v in batch.items()}
 
     def train_steps(self, state: TrainState, indices_matrix):
-        """K steps, one per row of ``indices_matrix`` (K, B); returns
-        (state, last step's metrics). Stands in for JAX's
-        ``train_steps_scan``."""
+        """K eager steps, one :meth:`train_step_indices` per row of
+        ``indices_matrix`` (K, B); returns (state, last step's metrics).
+        The plain counterpart of :meth:`train_steps_scan`, which it
+        equals on the CPU."""
         metrics = None
         for indices in indices_matrix:
             state, metrics = self.train_step_indices(state, indices)
         return state, metrics
+
+    # -- K steps a call: CUDA graphs of the step ---------------------------
+    def _eager_only(self) -> bool:
+        """Whether the K-step calls run the eager body: on the CPU, and in
+        a process group, whose gloo collectives a CUDA graph cannot hold
+        (logged once)."""
+        if self.mesh.distributed and not self._logged_eager:
+            self._logged_eager = True
+            logging.getLogger(__name__).info(
+                "process group of %d ranks: train_steps_scan and "
+                "train_steps_fixed run the eager step body (no CUDA graph "
+                "of the gloo collectives)", self.mesh.world)
+        return not self.graphed
+
+    def train_steps_scan(self, state: TrainState, indices_matrix):
+        """K steps from the attached store, one per row of
+        ``indices_matrix`` (K, B); returns (state, last step's metrics).
+        JAX's ``train_steps_scan`` (``lax.scan`` of the step in one XLA
+        program). On the card, in one process, each row is one replay of
+        a CUDA graph of the whole step (the store's gather and
+        augmentation from a static index buffer, both phases of an
+        adversarial method, every optimizer, the EMAs): see
+        :meth:`_graphed_steps`. On the CPU and in a process group it is
+        :meth:`train_steps`."""
+        if self.store is None:
+            raise RuntimeError("attach_store() first")
+        if self._eager_only():
+            return self.train_steps(state, indices_matrix)
+        return self._graphed_steps(
+            state, len(indices_matrix),
+            indices=np.asarray(indices_matrix, np.int64))
+
+    def train_steps_fixed(self, state: TrainState, batch: dict, k: int):
+        """K steps over one batch (numpy arrays or tensors; JAX's
+        ``train_steps_fixed``, a benchmark's and a probe's call); returns
+        (state, last step's metrics). On the card, in one process, each
+        step is one replay of a CUDA graph of the step on a static copy
+        of the batch; elsewhere :meth:`train_step` ``k`` times."""
+        batch = self.host_batch(batch)
+        if self._eager_only():
+            metrics = None
+            for _ in range(k):
+                state, metrics = self.train_step(state, batch)
+            return state, metrics
+        return self._graphed_steps(state, k, batch=batch)
+
+    def _drop_graphs(self):
+        """Forget the captured graphs, their static inputs and their memory
+        pool (after the card is done with any replay in flight): the
+        allocator may release a pool whose last graph is gone, so the next
+        capture starts a new one."""
+        if self._graphs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
+        self._static.clear()
+        self._graph_state = None
+        self._pool = None
+
+    def _state_tensors(self, state: TrainState) -> list:
+        """Every tensor whose address a graph of the step holds, and the
+        generator: parameters and buffers of the models and teachers, the
+        optimizers' state, the store's arrays."""
+        out = [state.generator]
+        for group in (state.models, state.teachers):
+            for m in group.values():
+                out += list(m.parameters()) + list(m.buffers())
+        for opt in state.optimizers.values():
+            for st in opt.state.values():
+                out += [v for v in st.values() if torch.is_tensor(v)]
+        if self.store is not None:
+            out += [t for t in self.store.arrays() if torch.is_tensor(t)]
+        return out
+
+    def _check_graphs(self, state: TrainState):
+        """Drop the graphs unless the state's and store's tensors are the
+        ones they were captured on (a new ``init_state``, a resume that
+        loads optimizer state, a new store). The tensors are held, so a
+        new one cannot take an old one's address unseen."""
+        if self._graph_state is None:
+            return
+        held, prints = self._graph_state
+        now = self._state_tensors(state)
+        if len(now) != len(held) or any(
+                a is not b for a, b in zip(now, held)) or prints != [
+                    t.data_ptr() for t in now[1:]]:
+            self._drop_graphs()
+
+    def _graphed_steps(self, state: TrainState, k: int,
+                       indices: Optional[np.ndarray] = None,
+                       batch: Optional[dict] = None):
+        """K steps as replays of CUDA graphs of the step, one graph per
+        (inputs' shapes, ``method.graph_key``). The step's inputs are
+        static buffers: before each replay the row's indices (or, once a
+        call, the batch) and the row of :meth:`step_table` are copied
+        into them on the card, from tables copied there once a call. A key
+        without a graph yet runs its first row as a real eager step on the
+        capture stream (the warm-up: momentum buffers, caches and scratch
+        made outside the capture), then is captured
+        (:meth:`_capture_step`), which runs nothing and moves no state. The
+        host advances ``state.step`` and every optimizer's ``count`` once
+        a replay, as the eager step does; the generator is registered with
+        each graph, so a replay draws the eager stream and advances it as
+        far. The last step's metrics are cloned out of the graph's static
+        outputs. A failed capture or replay raises."""
+        self._check_graphs(state)
+        names, table = self.step_table(state, k)
+        scal = self._upload(table)
+        if indices is not None:
+            rows = self._upload(indices)
+            sig = ("scan", indices.shape[1], names)
+        else:
+            sig = ("fixed", names) + tuple(
+                (n, tuple(v.shape), v.dtype) for n, v in batch.items())
+        st = self._static.get(sig)
+        if st is None:
+            st = self._static[sig] = {
+                "scalars": torch.empty(len(names), dtype=torch.float32,
+                                       device=self.device)}
+            if indices is not None:
+                st["indices"] = torch.empty(indices.shape[1],
+                                            dtype=torch.int64,
+                                            device=self.device)
+            else:
+                st["batch"] = {n: torch.empty_like(v)
+                               for n, v in batch.items()}
+        if batch is not None:
+            for n, v in batch.items():
+                st["batch"][n].copy_(v)
+
+        def run():
+            b = (self._store_batch(state, st["indices"])
+                 if indices is not None else st["batch"])
+            return self._step(state, b, names, st["scalars"])[1]
+
+        metrics = None
+        for r in range(k):
+            st["scalars"].copy_(scal[r])
+            if indices is not None:
+                st["indices"].copy_(rows[r])
+            key = sig + (self.method.graph_key(state.step),)
+            entry = self._graphs.get(key)
+            if entry is None:
+                metrics, graph, static = self._capture_step(state, run)
+                self._graphs[key] = (graph, static)
+                held = self._state_tensors(state)
+                self._graph_state = (held, [t.data_ptr() for t in held[1:]])
+                continue
+            graph, metrics = entry
+            graph.replay()
+            state.step += 1
+            for opt in state.optimizers.values():
+                opt.count += 1
+        # the static outputs and inputs change with the next replay or call
+        return state, {n: v.clone() if torch.is_tensor(v) else v
+                       for n, v in metrics.items()}
+
+    def _capture_step(self, state: TrainState, run: Callable):
+        """The warm-up and capture of one step (``run()``, which reads the
+        static inputs and returns the metrics): on a side stream, ``run()``
+        once as a real step, then a ``torch.cuda.CUDAGraph`` of it in the
+        engine's one memory pool, with ``state.generator`` registered;
+        ``state.step`` and the counts are put back after the capture.
+        Returns (the warm-up's metrics, the graph, its static metrics)."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            metrics = run()
+            counters = (state.step, {n: o.count for n, o in
+                                     state.optimizers.items()})
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(state.generator)
+            pool = () if self._pool is None else (self._pool,)
+            # not ``torch.cuda.graph``, which synchronises the device first
+            graph.capture_begin(*pool, capture_error_mode="thread_local")
+            try:
+                static = run()
+            finally:
+                graph.capture_end()
+                state.step = counters[0]
+                for n, o in state.optimizers.items():
+                    o.count = counters[1][n]
+            if self._pool is None:
+                self._pool = graph.pool()
+        main.wait_stream(stream)
+        return metrics, graph, static
 
     # ------------------------------------------------------------------
     # prediction
@@ -686,7 +939,10 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
                         cfg.val_every - it % cfg.val_every,
                         cfg.ckpt_every - it % cfg.ckpt_every,
                         max_iterations - it)
-                state, metrics = engine.train_steps(
+                # K > 1: JAX's scan, CUDA graphs of the step on the card
+                steps = (engine.train_steps_scan if cfg.scan_steps > 1
+                         else engine.train_steps)
+                state, metrics = steps(
                     state, [next(index_stream) for _ in range(n)])
             it += n
             images_seen += n * cfg.batch_size

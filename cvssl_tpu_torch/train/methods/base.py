@@ -10,11 +10,12 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from cvssl_tpu_torch.models import net_factory, net_factory_3d
-from cvssl_tpu_torch.ops import losses, schedules
+from cvssl_tpu_torch.ops import losses, ramps, schedules
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -90,6 +91,22 @@ class Method:
     def eval_model_names(self) -> Tuple[str, ...]:
         """Models validated (and best-checkpointed) by ``fit``."""
         return self.model_names
+
+    # -- the step's host values -------------------------------------------
+    def step_scalars(self, step: int) -> Dict[str, np.float32]:
+        """The float32 values the loss of step ``step`` reads, computed on
+        the host by the numpy ramps; the step reads them as 0-d float32
+        tensors on the device (``StepCtx.scalar``), so that a CUDA graph
+        of the step reads each replay's values from the card. Default: the
+        sigmoid-ramped consistency weight (``StepCtx.consistency_weight``).
+        """
+        return {"consistency_weight": np.float32(ramps.consistency_weight(
+            step, self.cfg.consistency, self.cfg.consistency_rampup))}
+
+    def graph_key(self, step: int) -> tuple:
+        """What the step's Python code branches on at ``step``: the engine
+        keeps one CUDA graph of the step per key. Default: no branch."""
+        return ()
 
     # -- the strategy -----------------------------------------------------
     def loss(self, ctx, batch):

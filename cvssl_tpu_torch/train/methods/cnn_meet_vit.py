@@ -19,6 +19,14 @@ class CnnMeetVit(CrossTeaching):
 
     teacher_names = ("model2",)
 
+    def step_scalars(self, step):
+        cfg = self.cfg
+        return {"consistency_weight": np.float32(cfg.consistency) * np.float32(
+            ramps.linear_rampup(step // 150, cfg.consistency_rampup))}
+
+    def graph_key(self, step):
+        return (step >= 1000,)
+
     def loss(self, ctx, batch):
         cfg = self.cfg
         lb = cfg.labeled_bs
@@ -42,10 +50,10 @@ class CnnMeetVit(CrossTeaching):
         ps1 = self._pseudo_dice(soft1[lb:], pseudo2)
         ps2 = self._pseudo_dice(soft2[lb:], pseudo1)
 
-        w = float(np.float32(cfg.consistency) * np.float32(
-            ramps.linear_rampup(ctx.step // 150, cfg.consistency_rampup)))
-        # JAX selects 0.0 before step 1000; the step is a host integer
-        # here, so the dead terms are not computed
+        w = ctx.consistency_weight()
+        # JAX selects 0.0 before step 1000; here the branch is the graph
+        # key (``graph_key``): the engine keeps a CUDA graph of each side,
+        # and the dead terms are not computed
         if ctx.step < 1000:
             cons1 = cons2 = torch.zeros((), device=out1.device)
         else:

@@ -54,6 +54,13 @@ class ContrastiveCross(CrossTeaching):
         per_epoch = max(self.cfg.labeled_slices // self.cfg.labeled_bs, 1)
         return int(step) // per_epoch
 
+    def step_scalars(self, step):
+        """The weight ramps on the epoch, in float32 as JAX's."""
+        cfg = self.cfg
+        return {"consistency_weight": np.float32(cfg.consistency) * np.float32(
+            ramps.ramp_up_function(self._epoch(step),
+                                   int(cfg.consistency_rampup)))}
+
     def loss(self, ctx, batch):
         cfg = self.cfg
         lb = cfg.labeled_bs
@@ -65,10 +72,7 @@ class ContrastiveCross(CrossTeaching):
         soft1 = torch.softmax(out1.float(), dim=1)
         soft2 = torch.softmax(out2.float(), dim=1)
 
-        # float32, as JAX's weight (a host float: no synchronisation)
-        w = float(np.float32(cfg.consistency) * np.float32(
-            ramps.ramp_up_function(self._epoch(ctx.step),
-                                   int(cfg.consistency_rampup))))
+        w = ctx.consistency_weight()
 
         loss1 = 0.5 * sum(self.sup_ce_dice(out1[:lb], label))
         loss2 = 0.5 * sum(self.sup_ce_dice(out2[:lb], label))

@@ -151,6 +151,14 @@ class ContrastiveConsistency(Method):
         self._loss_count = int(state["loss_count"])
 
     # ------------------------------------------------------------------
+    def step_scalars(self, step):
+        """The two weights on one sigmoid ramp, in float32 as JAX's."""
+        cfg = self.cfg
+        ramp = np.float32(ramps.sigmoid_rampup(int(step) // 150,
+                                               cfg.consistency_rampup))
+        return {"consistency_weight1": np.float32(cfg.consistency1) * ramp,
+                "consistency_weight2": np.float32(cfg.consistency2) * ramp}
+
     def loss(self, ctx, batch):
         cfg = self.cfg
         lb = cfg.labeled_bs
@@ -175,11 +183,8 @@ class ContrastiveConsistency(Method):
         masked = (norm1 * m1 + norm2 * m2) / 2.0
         pseudo = torch.argmax(masked.detach(), dim=1)[lb:]
 
-        # float32, as JAX's weights (host floats: no synchronisation)
-        ramp = np.float32(ramps.sigmoid_rampup(int(ctx.step) // 150,
-                                               cfg.consistency_rampup))
-        w1 = float(np.float32(cfg.consistency1) * ramp)
-        w2 = float(np.float32(cfg.consistency2) * ramp)
+        w1 = ctx.scalar("consistency_weight1")
+        w2 = ctx.scalar("consistency_weight2")
 
         sup = (sum(self.sup_ce_dice(out_w1[:lb], label))
                + sum(self.sup_ce_dice(out_w2[:lb], label)))

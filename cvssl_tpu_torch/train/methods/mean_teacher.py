@@ -16,6 +16,9 @@ class MeanTeacher(Method):
 
     teacher_names = ("model",)
 
+    def graph_key(self, step):
+        return (step >= 1000,)
+
     def loss(self, ctx, batch):
         cfg = self.cfg
         labeled_img, label, unlabeled_img = split_batch(cfg, batch)
@@ -32,8 +35,9 @@ class MeanTeacher(Method):
         ce, dice = self.sup_ce_dice(outputs[:cfg.labeled_bs], label)
         sup = 0.5 * (ce + dice)
 
-        # JAX computes the term and selects 0.0 before step 1000; the step
-        # is a host integer here, so the dead term is not computed at all
+        # JAX computes the term and selects 0.0 before step 1000; here the
+        # branch is the graph key (``graph_key``): the engine keeps a CUDA
+        # graph of each side, and the dead term is not computed at all
         if ctx.step < 1000:
             cons = torch.zeros((), device=sup.device)
         else:

@@ -80,13 +80,17 @@ class UncertaintyAwareMeanTeacher(Method):
 
         w = ctx.consistency_weight()
         dist = losses.softmax_mse_loss(outputs[lb:], ema_logits)
-        mask = (uncertainty < self.threshold(ctx.step)).float()
+        mask = (uncertainty < ctx.scalar("threshold")).float()
         cons = torch.sum(mask * dist) / (2 * torch.sum(mask) + 1e-16)
 
         total = sup + w * cons
         return total, {"loss": total, "loss_ce": ce, "loss_dice": dice,
                        "consistency_loss": cons, "consistency_weight": w,
                        "uncertainty_mask_frac": torch.mean(mask)}
+
+    def step_scalars(self, step):
+        return {**super().step_scalars(step),
+                "threshold": np.float32(self.threshold(step))}
 
     def threshold(self, step: int) -> float:
         """The entropy threshold at ``step``, in float32 as in JAX."""

@@ -44,13 +44,20 @@ class StepCtx:
     (``parallel/mesh.py::split_call``): the model runs on the rank's rows of
     the call's batch and the outputs come back gathered, so the methods'
     loss code sees the global tensors; a batch the world size does not
-    divide runs whole."""
+    divide runs whole.
+
+    ``scalars`` are the step's host values (``Method.step_scalars``, the
+    EMA decay, the learning rates) as 0-d float32 tensors on the device,
+    by name; the loss reads them through :meth:`scalar`. ``step`` is the
+    host integer, which the loss reads only where it branches, and each
+    such branch is part of the method's ``graph_key``."""
 
     def __init__(self, cfg, models: Dict[str, nn.Module],
                  teachers: Dict[str, nn.Module],
                  generator: Optional[torch.Generator], step: int,
                  dtypes: Optional[Dict[str, torch.dtype]] = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 scalars: Optional[Dict[str, torch.Tensor]] = None):
         self.cfg = cfg
         self.models = models
         self.teachers = teachers
@@ -58,6 +65,7 @@ class StepCtx:
         self.step = step
         self.dtypes = dtypes or {}
         self.mesh = mesh
+        self.scalars = scalars or {}
 
     def _call(self, model: nn.Module, x: torch.Tensor, *args, **kwargs):
         if self.mesh is None:
@@ -134,7 +142,9 @@ class StepCtx:
         g1, g2 = torch._standard_gamma(a, generator=g)
         return (g1 / (g1 + g2)).float()
 
-    def consistency_weight(self) -> float:
-        from cvssl_tpu_torch.ops.ramps import consistency_weight
-        return consistency_weight(self.step, self.cfg.consistency,
-                                  self.cfg.consistency_rampup)
+    def scalar(self, name: str) -> torch.Tensor:
+        """The step's host value ``name``, a 0-d float32 tensor."""
+        return self.scalars[name]
+
+    def consistency_weight(self) -> torch.Tensor:
+        return self.scalar("consistency_weight")
