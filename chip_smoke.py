@@ -299,13 +299,38 @@ the run with a non-zero exit:
    capture included: the capture does not synchronise).
    ``--graph-only`` builds the CE+Dice source alone and runs only this
    phase;
-15. one JSON line of the kernels (kernel #1's with its launches in each
+15. the library modules no training path calls, float32 with TF32 off
+   (run after phase 14, before phase 12): (a) ``define_g(1, 64,
+   "resnet_9blocks")`` (11,657,601 parameters), ``define_g(1, 64,
+   "unet_256")`` (54,407,809) and ``define_d(64, "basic")`` (2,763,585)
+   from seed 15; 5 timed LSGAN steps (after one warm-up) of each
+   generator against the discriminator at batch 4, 256^2 (G forward, D
+   on the fake and on the real, ``gan_loss`` both ways, backward, a
+   ``DiscriminatorAdam`` each), finite losses and both nets moved, ms/step
+   and peak memory; then each net's eval forward on the card against the
+   same weights on the CPU on two samples, within 1e-4 of the largest
+   output; (b) ``SCSEModule(16)`` on the card against the CPU at (24, 16,
+   256, 256) and (2, 16, 96, 96, 96), within 1e-5; (c) ``init_weights``
+   of each type (xavier, kaiming, orthogonal, normal) on config 2's UNet
+   with a CUDA generator: every bias exactly 0, each BatchNorm scale's
+   mean within 0.05 of 1, each kernel of 2,000 elements or more at JAX's
+   std (normal within 0.005 of 0.02, the others within 10%, fans on the
+   Flax shape) or orthonormal to 1e-4; then 5 mean-teacher steps at
+   config 2 from the "normal" re-init (the teacher a copy of it): finite
+   losses, kernel #1 1 + 1 a step by its counts and in a one-step
+   profile; (d) the host ms per 256^2 sample of ``RandomGeneratorStrong``
+   and ``RandomGenerator`` from a synthetic ACDC slice (median of 20).
+   Each part's seconds are printed, and the phase's against its 45 s
+   bound. ``--gan-only`` builds the CE+Dice source alone and runs only
+   this phase;
+16. one JSON line of the kernels (kernel #1's with its launches in each
    method's run of phases 5, 5b, 8, 9, 10 and 11, in each rank of phase
    13a (``mean_teacher_rank{r}_of_2``, its 10 steps), in each graphed
    call profiled in phase 14 (``mean_teacher_graphed``,
    ``cross_teaching_graphed``, ``uamt_3d_graphed``: device kernels of 10
    replays) and in the trace of 14e's graphed fit
-   (``mean_teacher_graphed_fit``), and in the
+   (``mean_teacher_graphed_fit``), in phase 15c's steps
+   (``mean_teacher_init_weights``), and in the
    contrastive_consistency, UAMT-3D, UNETR, pretrained and profiled
    (``mean_teacher_profiled_fit``) ``fit``s; phase
    5b's
@@ -577,6 +602,19 @@ GRAPH_METHODS_3D = ("supervised", "mean_teacher", "cps", "ict",
 # and resumes from its checkpoint on the same engine, and traces steps
 # 11-20
 GRAPH_FIT_STEPS, GRAPH_FIT_STOP, GRAPH_FIT_VAL, GRAPH_FIT_CKPT = 30, 20, 15, 10
+
+# phase 15: the GAN nets at full width (ngf = ndf = 64, 1 channel in and
+# out) at 256^2, batch 4; the card's float32 eval forwards against the CPU's
+# on the first GAN_CPU_ROWS samples (eval mode draws nothing and mixes no
+# samples); LSGAN steps, the first a warm-up
+GAN_BATCH, GAN_SIDE, GAN_CPU_ROWS, GAN_STEPS = 4, 256, 2, 6
+GAN_REL_TOL = 1e-4             # of the CPU output's largest element
+SCSE_SHAPES = ((24, 16, 256, 256), (2, 16, 96, 96, 96))
+SCSE_REL_TOL = 1e-5
+INIT_STEPS = 5                 # mean-teacher steps after init_weights
+INIT_ORTHO_TOL = 1e-4
+STRONG_SAMPLES = 20            # host transform timings, median
+PHASE15_BOUND_S = 45.0
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -4561,6 +4599,255 @@ def run_graphs(card):
             "mean_teacher_graphed_fit": {"launches": fit_kernels}}
 
 
+def gan_nets():
+    """Phase 15a's nets on the CPU, torch's default init from seed 15:
+    ``define_g(1, 64, "resnet_9blocks")``, ``define_g(1, 64, "unet_256")``
+    and ``define_d(64, "basic")``."""
+    import torch
+    from cvssl_tpu_torch.models import gan
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(15)
+        return {"resnet_9blocks": gan.define_g(1, 64, "resnet_9blocks"),
+                "unet_256": gan.define_g(1, 64, "unet_256"),
+                "basic": gan.define_d(64, "basic")}
+
+
+def run_gan_nets(card):
+    """Phase 15a: an LSGAN step of each generator against the basic
+    discriminator on the card (ms/step, peak memory), then each net's
+    float32 eval forward on the card against the CPU's."""
+    import copy
+
+    import torch
+    from cvssl_tpu_torch.models import gan
+    from cvssl_tpu_torch.ops.schedules import DiscriminatorAdam
+
+    cpu = gan_nets()
+    nets = {n: copy.deepcopy(m).cuda() for n, m in cpu.items()}
+    for name, m in nets.items():
+        print(f"phase 15a: {name} {sum(p.numel() for p in m.parameters()):,}"
+              " parameters")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    shape = (GAN_BATCH, 1, GAN_SIDE, GAN_SIDE)
+    x = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 1.0
+    real = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 1.0
+    d = nets["basic"].train()
+    opt_d = DiscriminatorAdam(d.parameters())
+    for name in ("resnet_9blocks", "unet_256"):
+        g = nets[name].train()
+        opt_g = DiscriminatorAdam(g.parameters())
+        d0 = [p.detach().clone() for p in d.parameters()]
+        g0 = [p.detach().clone() for p in g.parameters()]
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for step in range(GAN_STEPS):
+            if step == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            fake = g(x, gen)
+            loss_g = gan.gan_loss(d(fake), True)
+            opt_g.zero_grad(set_to_none=True)
+            loss_g.backward()
+            opt_g.step()
+            loss_d = 0.5 * (gan.gan_loss(d(fake.detach()), False)
+                            + gan.gan_loss(d(real), True))
+            opt_d.zero_grad(set_to_none=True)
+            loss_d.backward()
+            opt_d.step()
+            losses.append(torch.stack([loss_g.detach(), loss_d.detach()]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (GAN_STEPS - 1) * 1e3
+        vals = torch.stack(losses).cpu()
+        if not bool(torch.isfinite(vals).all()):
+            raise SystemExit(f"phase 15a {name}: losses {vals.tolist()}")
+        for what, before, m in (("generator", g0, g), ("discriminator", d0,
+                                                       d)):
+            if all(torch.equal(a, b) for a, b in zip(before, m.parameters())):
+                raise SystemExit(f"phase 15a {name}: the {what} did not "
+                                 "move")
+        print(f"phase 15a LSGAN {name} + basic D, batch {GAN_BATCH} at "
+              f"{GAN_SIDE}^2 float32 (TF32 off): {ms:.2f} ms/step over "
+              f"{GAN_STEPS - 1} steps, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+              f"losses G {vals[0, 0]:.4f} -> {vals[-1, 0]:.4f}, D "
+              f"{vals[0, 1]:.4f} -> {vals[-1, 1]:.4f}, on {card}")
+    rows = x[:GAN_CPU_ROWS]
+    for name, m in nets.items():
+        ref = cpu[name]
+        ref.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        inp = rows if name != "basic" else real[:GAN_CPU_ROWS]
+        with torch.no_grad():
+            got = m.eval()(inp).cpu()
+            want = ref.eval()(inp.cpu())
+        err = float((got - want).abs().max() / want.abs().max())
+        sat = float((want.abs() > 0.99).float().mean())
+        print(f"phase 15a eval {name}: output {tuple(got.shape)}, card vs "
+              f"CPU max rel err {err:.3e} (bound {GAN_REL_TOL:g}; share of "
+              f"|y| > 0.99 {sat:.3f})")
+        if not err <= GAN_REL_TOL:
+            raise SystemExit(f"phase 15a: {name}'s eval forward on the card "
+                             "disagrees with the CPU")
+
+
+def run_scse():
+    """Phase 15b: ``SCSEModule`` on the card against the CPU at the main
+    path's 2D and config 5's 3D activation shapes (16 channels)."""
+    import torch
+    from cvssl_tpu_torch.models.attention import SCSEModule
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(16)
+        ref = SCSEModule(16)
+    m = SCSEModule(16).cuda()
+    m.load_state_dict(ref.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for shape in SCSE_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        with torch.no_grad():
+            got = m(x).cpu()
+            want = ref(x.cpu())
+        err = float((got - want).abs().max() / want.abs().max())
+        print(f"phase 15b SCSEModule {shape}: card vs CPU max rel err "
+              f"{err:.3e} (bound {SCSE_REL_TOL:g})")
+        if not err <= SCSE_REL_TOL:
+            raise SystemExit(f"phase 15b: SCSEModule at {shape} disagrees")
+
+
+def check_init(model, init_type):
+    """Phase 15c's statistics of ``init_weights(model, init_type)``, the
+    CPU test's: every bias exactly 0; each BatchNorm scale's mean within
+    0.05 of 1; each kernel of at least 2,000 elements at JAX's std (normal:
+    within 0.005 of 0.02; xavier, kaiming: within 10%, fans on the Flax
+    shape), or orthonormal along its Flax matrix's shorter side to 1e-4."""
+    import torch
+    for name, m in model.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            what = f"phase 15c {init_type} {name}.{pname}"
+            p = p.detach()
+            if pname == "bias":
+                if bool(p.any()):
+                    raise SystemExit(f"{what}: a bias is not 0")
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                if abs(float(p.mean()) - 1.0) >= 0.05:
+                    raise SystemExit(f"{what}: scale mean {p.mean()}")
+            elif p.numel() >= 2000:
+                k = p.permute(2, 3, 1, 0).reshape(-1, p.shape[0]).double()
+                if init_type == "orthogonal":
+                    gram = k.T @ k if k.shape[0] >= k.shape[1] else k @ k.T
+                    err = float((gram - torch.eye(
+                        len(gram), dtype=gram.dtype,
+                        device=gram.device)).abs().max())
+                    if not err <= INIT_ORTHO_TOL:
+                        raise SystemExit(f"{what}: not orthogonal ({err})")
+                    continue
+                fan_in, fan_out = k.shape[0], p.shape[0] * k.shape[0] \
+                    // p.shape[1]
+                std = {"normal": 0.02,
+                       "xavier": (2.0 / (fan_in + fan_out)) ** 0.5,
+                       "kaiming": (2.0 / fan_in) ** 0.5}[init_type]
+                bound = 0.005 if init_type == "normal" else 0.1 * std
+                if abs(float(k.std()) - std) >= bound:
+                    raise SystemExit(f"{what}: std {float(k.std())} against "
+                                     f"{std}")
+
+
+def run_init_steps(card):
+    """Phase 15c: ``init_weights`` of each type on config 2's UNet with a
+    CUDA generator, then mean-teacher steps from its "normal" re-init (the
+    teacher a copy of it), kernel #1 once each way a step by its counts and
+    in a one-step profile. Returns its counts in the steps."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
+    from cvssl_tpu_torch.models.initializers import init_weights
+    from cvssl_tpu_torch.ops import fused_ce_dice as fcd
+    from cvssl_tpu_torch.train.engine import Engine
+
+    cfg = method_config("mean_teacher")
+    engine = Engine(cfg)
+    engine.attach_store(DeviceSliceStore(SyntheticACDC(), cfg.patch_size))
+    stream = two_stream(15).epochs()
+    state = engine.init_state()
+    model = state.models["model"]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for init_type in ("xavier", "kaiming", "orthogonal", "normal"):
+        init_weights(model, init_type, gen)
+        check_init(model, init_type)
+        print(f"phase 15c init_weights {init_type!r} on config 2's UNet: "
+              "biases 0, scales, kernels' statistics ok")
+    state.teachers["model"].load_state_dict(model.state_dict())
+    fcd.reset_launches()
+    losses = []
+    for _ in range(INIT_STEPS):
+        before = dict(fcd.LAUNCHES)
+        state, metrics = engine.train_steps(state, [next(stream)])
+        for k in before:
+            if fcd.LAUNCHES[k] != before[k] + 1:
+                raise SystemExit(f"phase 15c {k}: {before[k]} -> "
+                                 f"{fcd.LAUNCHES[k]} in one step")
+        losses.append(float(metrics["loss"]))
+    launches = dict(fcd.LAUNCHES)
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"phase 15c: losses {losses}")
+    counts = {}
+    for _ in range(3):          # a dropped record can only lower a count
+        _, _, seen = graph_profile(
+            lambda: engine.train_steps(state, [next(stream)]), 1)
+        counts = {k: max(counts.get(k, 0), v) for k, v in seen.items()}
+    if counts != {"ce_dice_fwd": 1, "ce_dice_bwd": 1}:
+        raise SystemExit(f"phase 15c: kernel #1 in a one-step profile: "
+                         f"{counts}")
+    print(f"phase 15c: {INIT_STEPS} mean-teacher steps at config 2 from the "
+          f"re-initialised UNet, losses {[round(v, 4) for v in losses]}, "
+          f"kernel #1 launches {launches} (1 + 1 a step), in a one-step "
+          f"profile {counts}, on {card}")
+    return launches
+
+
+def run_strong_transforms():
+    """Phase 15d: host ms per sample of ``RandomGeneratorStrong`` and
+    ``RandomGenerator`` from a synthetic ACDC slice to 256^2."""
+    from cvssl_tpu_torch.data import transforms as tr
+    slices = SyntheticACDC()
+    for cls in (tr.RandomGeneratorStrong, tr.RandomGenerator):
+        t = cls((PATCH, PATCH), np.random.default_rng(15))
+        times = []
+        for i in range(STRONG_SAMPLES):
+            sample = slices[i]
+            t0 = time.perf_counter()
+            out = t(sample)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if out["image"].shape != (PATCH, PATCH):
+                raise SystemExit(f"phase 15d {cls.__name__}: "
+                                 f"{out['image'].shape}")
+        print(f"phase 15d {cls.__name__}: {float(np.median(times)):.3f} host "
+              f"ms per {PATCH}^2 sample (median of {STRONG_SAMPLES})")
+
+
+def run_library(card):
+    """Phase 15: the last library modules on the card (see the module's
+    docstring). Returns kernel #1's launches in 15c's steps, keyed as the
+    kernels line keys the methods."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = t0 = time.perf_counter()
+    run_gan_nets(card)
+    print(f"phase 15a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_scse()
+    print(f"phase 15b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = run_init_steps(card)
+    print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_strong_transforms()
+    print(f"phase 15d: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    print(f"phase 15 (library): {time.perf_counter() - t_phase:.1f} s "
+          f"(bound {PHASE15_BOUND_S:g} s)")
+    return {"mean_teacher_init_weights": {"launches": launches}}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4606,6 +4893,11 @@ def main(argv=None) -> int:
         "a call as CUDA graphs against the eager steps), then stop "
         "without the result line")
     parser.add_argument(
+        "--gan-only", dest="only_gan", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 15 (the GAN "
+        "nets, SCSEModule, init_weights with mean-teacher steps, the "
+        "strong transforms), then stop without the result line")
+    parser.add_argument(
         "--par-cli-fit", metavar="DIR", default=None,
         help="phase 13b's child: the CLI's config-2 fit into DIR (with "
         "--distributed, under torchrun); phase 13 starts it")
@@ -4636,7 +4928,8 @@ def main(argv=None) -> int:
         return 0
     sources = ([] if (args.only_3d or args.only_9 or args.only_vit3d
                       or args.only_zoo2d or args.only_profile
-                      or args.only_parallel or args.only_graph)
+                      or args.only_parallel or args.only_graph
+                      or args.only_gan)
                else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
@@ -4713,6 +5006,11 @@ def main(argv=None) -> int:
         print("chip_smoke --graph-only: phase 14 passed; no result line "
               "(the other phases did not run)")
         return 0
+    if args.only_gan:
+        run_library(smi)
+        print("chip_smoke --gan-only: phase 15 passed; no result line (the "
+              "other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -4742,6 +5040,7 @@ def main(argv=None) -> int:
     methods.update(run_zoo2d(smi, strict))
     methods.update(run_parallel(device, smi))
     methods.update(run_graphs(smi))
+    methods.update(run_library(smi))
     # last: the profiler's session slows every later launch
     methods["mean_teacher_profiled_fit"] = {
         "launches": run_profiled_fit(device, smi)}

@@ -1,10 +1,13 @@
-"""Host-side augmentations, numpy + scipy (the port's own copy of the
-transforms of ``cvssl_tpu/data/transforms.py`` that ``build_2d_data`` and
-``build_3d_data`` use: in 2D ``random_rot_flip``, ``random_rotate``,
-``zoom_to``, ``color_jitter``, ``RandomGenerator``, ``RandomGeneratorWeak``
-and ``WeakStrongAugment``; in 3D ``pad_to_size``, ``CenterCrop``,
+"""Host-side augmentations, numpy + scipy: the port's own copy of
+``cvssl_tpu/data/transforms.py``. ``build_2d_data`` and ``build_3d_data``
+use, in 2D, ``random_rot_flip``, ``random_rotate``, ``zoom_to``,
+``color_jitter``, ``RandomGenerator``, ``RandomGeneratorWeak`` and
+``WeakStrongAugment``; in 3D ``pad_to_size``, ``CenterCrop``,
 ``RandomCrop``, ``RandomRotFlip3D``, ``RandomNoise3D``,
-``CreateOnehotLabel`` and ``Compose``).
+``CreateOnehotLabel`` and ``Compose``. No training path calls the strong
+transform, ``RandomGeneratorStrong`` with its ``rand_affine`` and
+``gaussian_blur``, or ``grid_mask``; they are library functions, as in
+JAX.
 
 They mirror the reference transforms of ``code/dataloaders/dataset.py``.
 Every stochastic transform takes an explicit ``numpy.random.Generator`` and
@@ -17,6 +20,7 @@ labels of the same shape, int; the channel axis is added at collate time
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -70,6 +74,74 @@ def color_jitter(rng: np.random.Generator, image: np.ndarray) -> np.ndarray:
     return image
 
 
+def rand_affine(rng: np.random.Generator, image: np.ndarray) -> np.ndarray:
+    """RandomAffine(degrees=90, translate=(.5, .5), shear=30)
+    (``dataset.py:109-115``): a rotation ~ U(-90, 90), a translation of up
+    to half the image, an x shear ~ U(-30, 30), nearest neighbour. The
+    matrix is torchvision's inverse about the centre, computed as JAX's
+    is, term for term: another factoring rounds some pixel choices the
+    other way."""
+    h, w = image.shape
+    angle = rng.uniform(-90, 90)
+    max_dx, max_dy = 0.5 * w, 0.5 * h
+    tx = float(np.round(rng.uniform(-max_dx, max_dx)))
+    ty = float(np.round(rng.uniform(-max_dy, max_dy)))
+    shear = rng.uniform(-30, 30)
+    rot = math.radians(angle)
+    sx = math.radians(shear)
+    cx, cy = (w - 1) * 0.5, (h - 1) * 0.5
+    a = math.cos(rot - sx) / math.cos(sx)
+    b = -math.cos(rot - sx) * math.tan(sx) / math.cos(sx) - math.sin(rot)
+    c = math.sin(rot - sx) / math.cos(sx)
+    d = -math.sin(rot - sx) * math.tan(sx) / math.cos(sx) + math.cos(rot)
+    # output coordinates -> input coordinates, rows then columns
+    m = np.array([[d, c], [b, a]], dtype=np.float64)
+    center = np.array([cy, cx])
+    trans = np.array([ty, tx])
+    offset = center - m @ (center + trans)
+    return ndimage.affine_transform(image, m, offset=offset, order=0,
+                                    mode="constant", cval=0.0)
+
+
+def gaussian_blur(rng: np.random.Generator, image: np.ndarray) -> np.ndarray:
+    """GaussianBlur(kernel_size=3) with sigma ~ U(0.1, 2.0)
+    (``dataset.py:117``): torchvision's 3-tap kernel from the Gaussian
+    pdf, rows then columns, reflected at the edges."""
+    sigma = rng.uniform(0.1, 2.0)
+    x = np.array([-1.0, 0.0, 1.0])
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k = k / k.sum()
+    out = ndimage.correlate1d(image, k, axis=0, mode="reflect")
+    return ndimage.correlate1d(out, k, axis=1, mode="reflect")
+
+
+def grid_mask(rng: np.random.Generator, image: np.ndarray, d1: int = 16,
+              d2: int = 32, ratio: float = 0.5, rotate: int = 90,
+              prob: float = 0.6) -> np.ndarray:
+    """GridMask (``code/gridmask.py:15-107``): with probability ``prob``, a
+    rotated regular grid of zeroed squares, period d ~ U{d1..d2}, side
+    ceil(d * ratio)."""
+    if rng.uniform() > prob:
+        return image
+    h, w = image.shape
+    d = int(rng.integers(d1, d2 + 1))
+    ll = int(math.ceil(d * ratio))
+    hh = int(math.ceil(1.5 * max(h, w)))
+    mask = np.ones((hh, hh), np.float32)
+    st = int(rng.integers(0, d))
+    for start in range(st, hh, d):
+        mask[start:start + ll, :] = 0
+    st = int(rng.integers(0, d))
+    for start in range(st, hh, d):
+        mask[:, start:start + ll] = 0
+    if rotate:
+        angle = int(rng.integers(0, rotate))
+        mask = ndimage.rotate(mask, angle, order=0, reshape=False)
+    off_h = (hh - h) // 2
+    off_w = (hh - w) // 2
+    return image * mask[off_h:off_h + h, off_w:off_w + w]
+
+
 class RandomGenerator:
     """The default train transform (``dataset.py:406-425``): with
     probability 1/2 rot90 + flip, else with probability 1/2 a rotation of
@@ -100,6 +172,30 @@ class RandomGeneratorWeak:
     def __call__(self, sample):
         image = zoom_to(sample["image"], self.output_size).astype(np.float32)
         label = zoom_to(sample["label"], self.output_size).astype(np.int32)
+        return {"image": image, "label": label}
+
+
+class RandomGeneratorStrong:
+    """The strong transform (``RandomGenerator_s``, ``dataset.py:377-403``):
+    :class:`RandomGenerator`'s geometry and zoom, then color jitter, the
+    random affine and the blur on the image (the grayscale step is an
+    identity on one channel)."""
+
+    def __init__(self, output_size: Sequence[int], rng=None):
+        self.output_size = tuple(output_size)
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, sample):
+        image, label = sample["image"], sample["label"]
+        if self.rng.random() > 0.5:
+            image, label = random_rot_flip(self.rng, image, label)
+        elif self.rng.random() > 0.5:
+            image, label = random_rotate(self.rng, image, label)
+        image = zoom_to(image, self.output_size).astype(np.float32)
+        label = zoom_to(label, self.output_size).astype(np.int32)
+        image = color_jitter(self.rng, image)
+        image = rand_affine(self.rng, image)
+        image = gaussian_blur(self.rng, image).astype(np.float32)
         return {"image": image, "label": label}
 
 

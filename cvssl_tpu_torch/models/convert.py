@@ -1,5 +1,6 @@
 """Flax weights <-> the port's ``state_dict``, for the UNet family, the
-discriminators, SwinUnet, the contrastive heads and the 3D nets.
+discriminators, SwinUnet, the contrastive heads, the 3D nets, the GAN
+scaffolding and ``SCSEModule``.
 
 Takes the numpy trees (``params``, ``batch_stats``) of a ``cvssl_tpu``
 UNet-family model on its plain path, of its ``FCDiscriminator`` or of its
@@ -60,6 +61,13 @@ counterparts); UNETR's block count and SwinUNETR's depths are read off the
 tree converted (:func:`vit3d_layout`). UNETR's ``position_embeddings`` is
 copied as it is.
 
+The GAN scaffolding (``models/gan.py``) keeps the reference's
+``nn.Sequential`` indices, and ``SCSEModule`` smp's names; each leaf
+function below names the Flax counterparts. Their layouts are read off the
+tree converted (:func:`gan_layout`), but for a ``ResnetGenerator``'s
+padding and dropout, which move its indices and which a Flax tree does not
+show: from Flax, pass its layout to :func:`state_dict_from_flax`.
+
 Conv kernels go from (kh, kw, in, out) to (out, in, kh, kw), or (kd, kh,
 kw, in, out) to (out, in, kd, kh, kw); a transpose conv's from (*k, in,
 out) to (in, out, *k) flipped on every spatial axis, since Flax's
@@ -72,7 +80,8 @@ and torch's is the gradient of a conv (as
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, List, Mapping, Sequence, Tuple
+from typing import (Dict, Iterable, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -692,6 +701,144 @@ def res2net_layers(tree) -> Tuple[int, ...]:
     return tuple(depth[i] for i in sorted(depth))
 
 
+def _gan_norm(norm: str, port: str, path: Tuple[str, ...]) -> List[Leaf]:
+    """A GAN net's norm: BatchNorm's tensors under "batch"; "instance" and
+    "none" hold none."""
+    return _batch_norm(port, path + ("BatchNorm_0",)) if norm == "batch" \
+        else []
+
+
+def _nlayer_discriminator(levels: int, norm: str) -> List[Leaf]:
+    """NLayerDiscriminator: ``Conv_0`` is ``model.0``; level n (1 ..
+    ``levels``: the stride-2 levels, then the stride-1 one) is ``Conv_n``
+    at ``model.{3n-1}`` and ``_Norm_{n-1}`` at ``model.{3n}``; the last
+    ``Conv_{levels+1}`` is ``model.{3 levels + 2}``."""
+    bias = norm == "instance"
+    out = _conv("model.0", ("Conv_0",))
+    for n in range(1, levels + 1):
+        out += (_conv(f"model.{3 * n - 1}", (f"Conv_{n}",), bias)
+                + _gan_norm(norm, f"model.{3 * n}", (f"_Norm_{n - 1}",)))
+    return out + _conv(f"model.{3 * levels + 2}", (f"Conv_{levels + 1}",))
+
+
+def _resnet_generator(blocks: int, norm: str, padded: bool = True,
+                      dropout: bool = False) -> List[Leaf]:
+    """ResnetGenerator in pix2pix's layout: ``Conv_0..2``/``_Norm_0..2``
+    are ``model.1``/``.2``, ``model.4``/``.5``, ``model.7``/``.8``;
+    ``ResnetBlock_{b}`` is ``model.{10+b}.conv_block``, its ``Conv_j``/
+    ``_Norm_j`` at indices that move with the pad modules (none under
+    "zero" padding) and the dropout; ``ConvTranspose_0..1``/``_Norm_3..4``
+    follow the blocks, and ``Conv_3`` is the head (``model.{17+blocks}``)."""
+    bias = norm == "instance"
+    out = []
+    for i, c in enumerate((1, 4, 7)):
+        out += (_conv(f"model.{c}", (f"Conv_{i}",), bias)
+                + _gan_norm(norm, f"model.{c + 1}", (f"_Norm_{i}",)))
+    first = int(padded)
+    second = first + 3 + int(dropout) + int(padded)
+    for b in range(blocks):
+        blk, p = f"model.{10 + b}.conv_block", (f"ResnetBlock_{b}",)
+        for j, k in enumerate((first, second)):
+            out += (_conv(f"{blk}.{k}", p + (f"Conv_{j}",), bias)
+                    + _gan_norm(norm, f"{blk}.{k + 1}", p + (f"_Norm_{j}",)))
+    t = 10 + blocks
+    for j, c in enumerate((t, t + 3)):
+        out += (_conv(f"model.{c}", (f"ConvTranspose_{j}",), bias, "tkernel")
+                + _gan_norm(norm, f"model.{c + 1}", (f"_Norm_{3 + j}",)))
+    return out + _conv(f"model.{t + 7}", ("Conv_3",))
+
+
+def _unet_generator(blocks: int, norm: str) -> List[Leaf]:
+    """UnetGenerator: Flax keeps every ``UnetSkipConnectionBlock_{k}`` at
+    the top level, k = 0 the innermost, ``blocks - 1`` the outermost
+    (``model.model``); each inner block is index 1 (of the outermost) or 3
+    (of a middle block) of its parent's ``model``. A block's ``Conv_0`` is
+    its down conv, ``ConvTranspose_0`` its up conv, ``_Norm_0``/``_Norm_1``
+    its down and up norms (the innermost's ``_Norm_0`` is its up norm)."""
+    bias = norm == "instance"
+    out, port = [], "model.model"
+    for k in reversed(range(blocks)):
+        p = (f"UnetSkipConnectionBlock_{k}",)
+        if k == blocks - 1:         # down, inner, ReLU, up, tanh
+            out += (_conv(f"{port}.0", p + ("Conv_0",), bias)
+                    + _conv(f"{port}.3", p + ("ConvTranspose_0",), True,
+                            "tkernel"))
+            port += ".1.model"
+        elif k == 0:                # LeakyReLU, down, ReLU, up, norm
+            out += (_conv(f"{port}.1", p + ("Conv_0",), bias)
+                    + _conv(f"{port}.3", p + ("ConvTranspose_0",), bias,
+                            "tkernel")
+                    + _gan_norm(norm, f"{port}.4", p + ("_Norm_0",)))
+        else:       # LeakyReLU, down, norm, inner, ReLU, up, norm
+            out += (_conv(f"{port}.1", p + ("Conv_0",), bias)
+                    + _gan_norm(norm, f"{port}.2", p + ("_Norm_0",))
+                    + _conv(f"{port}.5", p + ("ConvTranspose_0",), bias,
+                            "tkernel")
+                    + _gan_norm(norm, f"{port}.6", p + ("_Norm_1",)))
+            port += ".3.model"
+    return out
+
+
+def _scse() -> List[Leaf]:
+    """SCSEModule: Flax's ``Conv_0``/``Conv_1`` are ``cSE.1``/``cSE.3``,
+    ``Conv_2`` is ``sSE.0``."""
+    return (_conv("cSE.1", ("Conv_0",)) + _conv("cSE.3", ("Conv_1",))
+            + _conv("sSE.0", ("Conv_2",)))
+
+
+_GAN_NETS = ("nlayer_discriminator", "resnet_generator", "unet_generator")
+
+
+def _names(tree: Mapping) -> List[str]:
+    """A ``state_dict``'s keys, or a nested Flax tree's paths joined by
+    '/'."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out += [f"{k}/{n}" for n in _names(v)]
+        else:
+            out.append(k)
+    return out
+
+
+def gan_layout(net_type: str, tree: Mapping) -> tuple:
+    """A GAN net's layout, read off a Flax ``params`` tree or a
+    ``state_dict``'s names: ``(levels, norm)`` of an NLayerDiscriminator,
+    ``(blocks, norm)`` of a UnetGenerator, ``(blocks, norm, padded,
+    dropout)`` of a ResnetGenerator (from Flax, padded and without dropout:
+    its tree shows neither). ``norm`` is "batch" where BatchNorm's tensors
+    are, else "instance" where the convs carry biases, else "none"."""
+    names = _names(tree)
+    flax = not any("." in n for n in names)
+    bias = {"nlayer_discriminator": ("Conv_1/bias", "model.2.bias"),
+            "resnet_generator": ("Conv_0/bias", "model.1.bias"),
+            "unet_generator": ("UnetSkipConnectionBlock_0/Conv_0/bias",
+                               "model.model.0.bias")}[net_type]
+    norm = ("batch" if any("BatchNorm_0" in n or n.endswith("running_mean")
+                           for n in names)
+            else "instance" if bias[not flax] in names else "none")
+    if net_type == "nlayer_discriminator":
+        if flax:
+            return len([n for n in tree if n.startswith("Conv_")]) - 2, norm
+        last = max(int(n.split(".")[1]) for n in names)
+        return (last - 2) // 3, norm
+    if net_type == "unet_generator":
+        if flax:
+            return len([n for n in tree
+                        if n.startswith("UnetSkipConnectionBlock_")]), norm
+        return max(n.split(".").count("model") for n in names) - 1, norm
+    if flax:
+        return len([n for n in tree if n.startswith("ResnetBlock_")]), norm, \
+            True, False
+    blocks = {n.split(".")[1] for n in names if ".conv_block." in n}
+    if not blocks:
+        return 0, norm, True, False
+    padded = "model.10.conv_block.0.weight" not in names
+    # the dropout moves the second conv one index on
+    dropout = f"model.10.conv_block.{5 if padded else 3}.weight" not in names
+    return len(blocks), norm, padded, dropout
+
+
 def _pooled_side(n_in: int, channels: int) -> int:
     side = int(round((n_in // channels) ** 0.5))
     if side * side * channels != n_in:
@@ -701,11 +848,20 @@ def _pooled_side(n_in: int, channels: int) -> int:
 
 
 def leaves(net_type: str, depths: Sequence[int] = (2, 2, 2, 2),
-           layout: Tuple[int, int, bool] = (6, 2, False)) -> List[Leaf]:
+           layout: tuple = (6, 2, False)) -> List[Leaf]:
     """Every tensor of ``net_type``'s ``state_dict`` with its place in the
     flax trees (``depths``: SwinUnet's or SwinUNETR's stages, UNETR's
     block count as its one element; ``layout``: nnUNet's, as
-    :func:`nnunet_layout` reads it)."""
+    :func:`nnunet_layout` reads it, or a GAN net's, as :func:`gan_layout`
+    does)."""
+    if net_type == "nlayer_discriminator":
+        return _nlayer_discriminator(*layout)
+    if net_type == "resnet_generator":
+        return _resnet_generator(*layout)
+    if net_type == "unet_generator":
+        return _unet_generator(*layout)
+    if net_type == "scse":
+        return _scse()
     if net_type == "unetr":
         return _unetr(depths[0])
     if net_type == "swinunetr":
@@ -782,9 +938,13 @@ def flax_kernel(v: np.ndarray, kind: str = "kernel") -> np.ndarray:
     return np.transpose(np.flip(v, spatial), spatial + (0, 1))
 
 
-def _leaves_of(net_type: str, tree: Mapping) -> List[Leaf]:
+def _leaves_of(net_type: str, tree: Mapping,
+               layout: Optional[tuple] = None) -> List[Leaf]:
     """:func:`leaves` with the stage layout read off ``tree`` (a Flax
-    ``params`` tree or a ``state_dict``)."""
+    ``params`` tree or a ``state_dict``), a GAN net's ``layout`` where
+    given."""
+    if net_type in _GAN_NETS:
+        return leaves(net_type, layout=layout or gan_layout(net_type, tree))
     if net_type == "nnUNet":
         return leaves(net_type, layout=nnunet_layout(tree))
     if net_type in ("unetr", "swinunetr"):
@@ -800,12 +960,15 @@ def _leaves_of(net_type: str, tree: Mapping) -> List[Leaf]:
 
 
 def state_dict_from_flax(net_type: str, params: Mapping,
-                         batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+                         batch_stats: Mapping, layout: Optional[tuple] = None
+                         ) -> Dict[str, torch.Tensor]:
     """(params, batch_stats) of the ``cvssl_tpu`` model registered as
-    ``net_type`` -> a ``state_dict`` for the port's model of that name."""
+    ``net_type`` -> a ``state_dict`` for the port's model of that name
+    (``layout``: a GAN net's, as :func:`gan_layout` returns it, where the
+    Flax tree cannot show it)."""
     trees = {"params": params, "batch_stats": batch_stats}
     sd: Dict[str, np.ndarray] = {}
-    for key, coll, path, kind in _leaves_of(net_type, params):
+    for key, coll, path, kind in _leaves_of(net_type, params, layout):
         if kind == "count":
             sd[key] = np.zeros((), np.int64)
             continue

@@ -79,6 +79,23 @@ _REGISTRY_3D: Dict[str, Callable[..., nn.Module]] = {
 }
 
 
+def register_2d(name: str):
+    """A decorator that enters a constructor ``(in_chns, class_num, **kw)
+    -> nn.Module`` into the 2D registry under ``name``."""
+    def deco(fn):
+        _REGISTRY_2D[name] = fn
+        return fn
+    return deco
+
+
+def register_3d(name: str):
+    """:func:`register_2d` for the 3D registry."""
+    def deco(fn):
+        _REGISTRY_3D[name] = fn
+        return fn
+    return deco
+
+
 def net_factory(net_type: str = "unet", in_chns: int = 1,
                 class_num: int = 3, **kwargs) -> nn.Module:
     """2D registry (reference ``net_factory.py:77-107``)."""

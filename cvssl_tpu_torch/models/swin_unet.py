@@ -116,6 +116,22 @@ def drop_path(x: torch.Tensor, rate: float,
     return torch.where(mask, x / keep, 0.0)
 
 
+class DropPath(nn.Module):
+    """:func:`drop_path` as a module: active in train mode, the keep mask
+    from the ``generator`` passed to ``forward``. JAX: ``DropPath``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return drop_path(x, self.rate, generator, self.training)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
 def _in_float32(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``module`` on float32 ``x`` with autocast off: JAX builds
     ``concat_back_dim_{j}`` and ``up_0`` without a dtype, so Flax computes

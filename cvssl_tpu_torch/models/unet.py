@@ -84,6 +84,23 @@ def _global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def bilinear_resize(x: torch.Tensor, new_hw, align_corners: bool = True
+                    ) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor to ``new_hw``: torch's
+    ``align_corners=True`` interpolation (the bilinear UpBlock's, and the
+    deep-supervision heads' upsample) when asked and both new sides are
+    above 1, else half-pixel centres with antialiasing, as
+    ``jax.image.resize`` does. JAX: ``unet.bilinear_resize`` (NHWC)."""
+    new_hw = tuple(new_hw)
+    if new_hw == tuple(x.shape[2:]):
+        return x
+    if align_corners and min(new_hw) > 1:
+        return F.interpolate(x, size=new_hw, mode="bilinear",
+                             align_corners=True)
+    return F.interpolate(x, size=new_hw, mode="bilinear",
+                         align_corners=False, antialias=True)
+
+
 class ConvBlock(nn.Module):
     """conv3x3-BN-LeakyReLU-dropout-conv3x3-BN-LeakyReLU."""
 

@@ -306,6 +306,12 @@ def con_loss(feat_q: torch.Tensor, feat_k: torch.Tensor,
     return _patch_nce(feat_q, feat_k, temperature, pos_from_dot=True)
 
 
+# The reference's ConLoss_queue (losses.py:598) never reads its queue in
+# forward (and its __init__ names an undefined variable), so it is ConLoss.
+# JAX: ``losses.con_loss_queue``.
+con_loss_queue = con_loss
+
+
 def contrastive_loss_sup(feat_q: torch.Tensor, feat_k: torch.Tensor,
                          temperature: float = 0.07) -> torch.Tensor:
     """Supervised patch contrastive loss. The reference defines it twice
