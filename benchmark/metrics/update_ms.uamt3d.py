@@ -1,0 +1,9 @@
+"""update_ms.uamt3d (ms): step phase ``update`` (the all-reduce, the optimizers
+and the EMAs) of the program's newest step, the traced window's last graph
+replay: device time between the phase's timing events, recorded by the
+replay."""
+from benchmark import spans
+
+
+def read(run):
+    return spans.phase_ms(run, "update")

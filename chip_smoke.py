@@ -323,7 +323,25 @@ the run with a non-zero exit:
    Each part's seconds are printed, and the phase's against its 45 s
    bound. ``--gan-only`` builds the CE+Dice source alone and runs only
    this phase;
-16. one JSON line of the kernels (kernel #1's with its launches in each
+16. the program's spans and step phases (``utils/tracing.py``), run after
+   phase 15, before phase 12: (a) config 2's mean_teacher from the slice
+   store and (b) UAMT-3D at config 5 from the volume store of 250
+   volumes, each from step 25000: a graphed call of 10 steps, then the
+   phases (``gather``, ``forward``, ``teacher``, ``backward``,
+   ``update``) read from the last replay's event nodes, each positive;
+   an eager step's phases; a profiled graphed call whose last replay's
+   ``gather + forward + backward + update`` lies within 5% of a replay's
+   device time (the call's busy time over its replays); no device
+   operation of either trace named as a phase; (c) UNet3D's sliding
+   window as ``Engine.validate`` builds it, 6 hand-overs of 140 x 180 x
+   180 volumes at depth 2 under the profiler, each in a user annotation:
+   one ``val3d.predict`` span a volume covering 95% of its hand-over,
+   one ``val3d.forward`` and two ``val3d.accumulate`` a batch of
+   windows, none on the device; host ms a volume of each. A graph's
+   events that ``elapsed_time`` cannot read end the phase.
+   ``--tracing-only`` builds the CE+Dice source alone and runs only this
+   phase;
+17. one JSON line of the kernels (kernel #1's with its launches in each
    method's run of phases 5, 5b, 8, 9, 10 and 11, in each rank of phase
    13a (``mean_teacher_rank{r}_of_2``, its 10 steps), in each graphed
    call profiled in phase 14 (``mean_teacher_graphed``,
@@ -615,6 +633,21 @@ INIT_STEPS = 5                 # mean-teacher steps after init_weights
 INIT_ORTHO_TOL = 1e-4
 STRONG_SAMPLES = 20            # host transform timings, median
 PHASE15_BOUND_S = 45.0
+
+# phase 16: the program's spans and step phases (``utils/tracing.py``):
+# graphed calls of GRAPH_K steps of config 2's mean_teacher from the slice
+# store and of UAMT-3D from the volume store, from step TRACE_START (past
+# both methods' ramps' first turns, as the benchmark's train cells); the
+# phases of the last replay of a profiled call against a replay's device
+# time there (its busy time over its replays), within TRACE_PHASE_TOL; the
+# sliding window's hand-overs of TRACE_VOLUMES volumes under the profiler,
+# whose ``val3d.predict`` spans must cover TRACE_COVER of the hand-overs
+TRACE_START = 25000
+TRACE_PHASE_TOL = 0.05
+TRACE_VOLUMES, TRACE_COVER = 6, 0.95
+TRACE_PHASES = ("gather", "forward", "backward", "update")
+PROGRAM_SPANS = TRACE_PHASES + ("teacher", "val3d.predict", "val3d.forward",
+                                "val3d.accumulate")
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -4848,6 +4881,191 @@ def run_library(card):
     return {"mean_teacher_init_weights": {"launches": launches}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the program's spans and step phases
+# ---------------------------------------------------------------------------
+
+def profiled_ops(fn):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA), the card
+    synchronised inside: (device operations, host operations), each a
+    list of (start us, end us, name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    device, host = [], []
+    for ev in prof.events():
+        op = (ev.time_range.start, ev.time_range.end, ev.name)
+        (device if ev.device_type == cuda else host).append(op)
+    return device, host
+
+
+def union_us(ops):
+    """The length of the union of the operations' intervals, us."""
+    total, end = 0.0, None
+    for s, e, _ in sorted(ops):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def no_program_span_on_device(what, device_ops):
+    named = sorted({n for _, _, n in device_ops if n in PROGRAM_SPANS})
+    if named:
+        raise SystemExit(f"{what}: device operations named as the "
+                         f"program's spans: {named}")
+
+
+def check_step_phases(what, engine, state, rows, card):
+    """Phase 16a/b: a graphed call (the capture and K - 1 replays), then
+    the phases read from the last replay's event nodes, positive; an
+    eager step's; then a profiled graphed call: the last replay's
+    ``gather + forward + backward + update`` against a replay's device
+    time, and no device operation named as a phase."""
+    import torch
+    from cvssl_tpu_torch.utils import tracing
+
+    state.step = TRACE_START
+    state, _ = engine.train_steps_scan(state, rows())
+    torch.cuda.synchronize()
+    if not tracing._REGISTRY.newest.captured:
+        raise SystemExit(f"{what}: the newest step is not a replay's")
+    try:
+        graphed = tracing.step_ms()
+    except RuntimeError as e:
+        raise SystemExit(f"{what}: elapsed_time on the events a graph "
+                         f"replay recorded failed: {e}") from e
+    want = set(TRACE_PHASES) | {"teacher"}
+    if set(graphed) != want or not all(v > 0 for v in graphed.values()):
+        raise SystemExit(f"{what}: a replay's phases {graphed}")
+    dev, _ = profiled_ops(lambda: engine.train_steps(state, rows(1)))
+    eager = tracing.step_ms()
+    if tracing._REGISTRY.newest.captured or set(eager) != want or not all(
+            v > 0 for v in eager.values()):
+        raise SystemExit(f"{what}: eager phases {eager}")
+    no_program_span_on_device(f"{what} eager step", dev)
+    dev, _ = profiled_ops(lambda: engine.train_steps_scan(state, rows()))
+    ms = tracing.step_ms()
+    replay = union_us(dev) / 1e3 / GRAPH_K
+    total = sum(ms[p] for p in TRACE_PHASES)
+    gap = total / replay - 1.0
+    print(f"{what}: last replay's phases (ms) " + " ".join(
+        f"{k} {v:.3f}" for k, v in ms.items()) + f"; gather + forward + "
+        f"backward + update {total:.3f} ms against a replay's busy "
+        f"{replay:.3f} ms ({100 * gap:+.2f}%, bound "
+        f"{100 * TRACE_PHASE_TOL:g}%); unprofiled replay "
+        + " ".join(f"{k} {v:.3f}" for k, v in graphed.items())
+        + "; eager step " + " ".join(f"{k} {v:.3f}"
+                                     for k, v in eager.items())
+        + f", on {card}")
+    if abs(gap) > TRACE_PHASE_TOL:
+        raise SystemExit(f"{what}: the phases sum to {total:.3f} ms, a "
+                         f"replay takes {replay:.3f} ms")
+    no_program_span_on_device(f"{what} graphed call", dev)
+
+
+def check_window_spans(device, card):
+    """Phase 16c: UNet3D's sliding window as ``Engine.validate`` builds it,
+    TRACE_VOLUMES hand-overs of 140 x 180 x 180 volumes at depth 2 under
+    the profiler, each inside a user annotation as the benchmark's: one
+    ``val3d.predict`` a volume covering TRACE_COVER of its hand-over, one
+    ``val3d.forward`` and two ``val3d.accumulate`` a batch of windows,
+    none of them on the device."""
+    import functools
+
+    import torch
+    from torch.profiler import record_function
+    from cvssl_tpu_torch.eval import val3d
+    from cvssl_tpu_torch.train.engine import Engine
+
+    engine = Engine(config_3d("uamt"))
+    state = engine.init_state()
+    ev = val3d.SlidingWindowEvaluator(
+        functools.partial(engine.eval_probs, "model"), (PATCH_3D,) * 3,
+        CLASSES_3D, 64, 64, predict_takes_args=True, device=device)
+    src = brats_volumes(device, 2, seed=600)
+    vols = [src[i]["image"] for i in range(2)]
+    model = state.models["model"]
+    ev.predict_volume(vols[0], model)
+
+    def stream():
+        pending = []
+        for i in range(TRACE_VOLUMES):
+            with record_function("smoke.enqueue"):
+                pending.append(ev.predict_volume_async(vols[i % 2], model))
+            if len(pending) >= 2:
+                pending.pop(0)()
+        for done in pending:
+            done()
+    dev, host = profiled_ops(stream)
+    no_program_span_on_device("phase 16c", dev)
+    spans = {n: [(s, e) for s, e, m in host if m == n]
+             for n in ("smoke.enqueue",) + PROGRAM_SPANS[-3:]}
+    batches = math.ceil(SW_WINDOWS / ev.patch_batch)
+    counts = {n: len(v) for n, v in spans.items()}
+    if counts != {"smoke.enqueue": TRACE_VOLUMES,
+                  "val3d.predict": TRACE_VOLUMES,
+                  "val3d.forward": TRACE_VOLUMES * batches,
+                  "val3d.accumulate": 2 * TRACE_VOLUMES * batches}:
+        raise SystemExit(f"phase 16c: spans {counts}")
+    ms = {n: sum(e - s for s, e in v) / 1e3 / TRACE_VOLUMES
+          for n, v in spans.items()}
+    cover = ms["val3d.predict"] / ms["smoke.enqueue"]
+    print("phase 16c: sliding window, host ms a volume under the profiler: "
+          + " ".join(f"{n} {v:.3f}" for n, v in ms.items())
+          + f"; val3d.predict covers {100 * cover:.2f}% of the hand-over "
+          f"(bound {100 * TRACE_COVER:g}%), on {card}")
+    if cover < TRACE_COVER:
+        raise SystemExit("phase 16c: the val3d.predict spans cover too "
+                         "little of the hand-overs")
+
+
+def run_tracing(device, card):
+    """Phase 16: ``utils/tracing.py`` on the card (see the module's
+    docstring)."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import (DeviceSliceStore,
+                                                   DeviceVolumeStore)
+    from cvssl_tpu_torch.train.engine import Engine
+
+    t_phase = t0 = time.perf_counter()
+    cfg = method_config("mean_teacher")
+    engine = Engine(cfg)
+    engine.attach_store(DeviceSliceStore(SyntheticACDC(), cfg.patch_size))
+    stream = two_stream(16).epochs()
+    check_step_phases("phase 16a mean_teacher config 2", engine,
+                      engine.init_state(),
+                      lambda k=GRAPH_K: [next(stream) for _ in range(k)],
+                      card)
+    del engine
+    print(f"phase 16a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    engine = Engine(config_3d("uamt"))
+    engine.attach_store(DeviceVolumeStore(brats_volumes(device),
+                                          (PATCH_3D,) * 3))
+    stream3 = two_stream_3d(16).epochs()
+    check_step_phases("phase 16b uamt 3D config 5", engine,
+                      engine.init_state(),
+                      lambda k=GRAPH_K: [next(stream3) for _ in range(k)],
+                      card)
+    del engine
+    torch.cuda.empty_cache()
+    print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_window_spans(device, card)
+    torch.cuda.empty_cache()
+    print(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 16 (tracing): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4898,6 +5116,11 @@ def main(argv=None) -> int:
         "nets, SCSEModule, init_weights with mean-teacher steps, the "
         "strong transforms), then stop without the result line")
     parser.add_argument(
+        "--tracing-only", dest="only_tracing", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and run phase 16 (the step "
+        "phases of graphed and eager steps, the sliding window's spans "
+        "under the profiler), then stop without the result line")
+    parser.add_argument(
         "--par-cli-fit", metavar="DIR", default=None,
         help="phase 13b's child: the CLI's config-2 fit into DIR (with "
         "--distributed, under torchrun); phase 13 starts it")
@@ -4929,7 +5152,7 @@ def main(argv=None) -> int:
     sources = ([] if (args.only_3d or args.only_9 or args.only_vit3d
                       or args.only_zoo2d or args.only_profile
                       or args.only_parallel or args.only_graph
-                      or args.only_gan)
+                      or args.only_gan or args.only_tracing)
                else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
@@ -5011,6 +5234,11 @@ def main(argv=None) -> int:
         print("chip_smoke --gan-only: phase 15 passed; no result line (the "
               "other phases did not run)")
         return 0
+    if args.only_tracing:
+        run_tracing(device, smi)
+        print("chip_smoke --tracing-only: phase 16 passed; no result line "
+              "(the other phases did not run)")
+        return 0
     t0 = time.perf_counter()
     err = check_kernels(device)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s")
@@ -5041,7 +5269,8 @@ def main(argv=None) -> int:
     methods.update(run_parallel(device, smi))
     methods.update(run_graphs(smi))
     methods.update(run_library(smi))
-    # last: the profiler's session slows every later launch
+    # last: the profiler's sessions slow every later launch
+    run_tracing(device, smi)
     methods["mean_teacher_profiled_fit"] = {
         "launches": run_profiled_fit(device, smi)}
 

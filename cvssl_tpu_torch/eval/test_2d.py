@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import os
 import shutil
-import time
 
 import numpy as np
 from scipy.ndimage import zoom
@@ -31,6 +30,7 @@ from scipy.ndimage import zoom
 from cvssl_tpu_torch.eval.test_3d import (load_net, resolve_device,
                                           snapshot_dir)
 from cvssl_tpu_torch.ops import metrics as M
+from cvssl_tpu_torch.utils import tracing
 
 PHASES = ("zoom_in", "predict", "zoom_out", "metrics", "export")
 
@@ -84,42 +84,37 @@ def test_single_volume(image, label, predict, flags, case=None,
     """Score one (S, H, W) volume: per foreground class (dice,), or (dice,
     hd95, asd) with ``flags.full_metrics``; export it when
     ``test_save_path`` is given. ``times``: a dict that gains the seconds
-    of each of ``PHASES``. Returns (rows, prediction)."""
+    of each of ``PHASES``, from the host spans ``test_2d.<phase>``
+    (``utils/tracing.py``). Returns (rows, prediction)."""
     from cvssl_tpu_torch.eval.val2d import predict_slices
-    clock = [time.perf_counter()]
-
-    def lap(phase):
-        now = time.perf_counter()
-        if times is not None:
-            times[phase] = times.get(phase, 0.0) + now - clock[0]
-        clock[0] = now
     ph, pw = flags.patch_size
     _, x, y = image.shape
-    zoomed = zoom(image, (1, ph / x, pw / y), order=0)
-    lap("zoom_in")
-    pred_patch = predict_slices(predict, zoomed).cpu().numpy()
-    lap("predict")
-    prediction = zoom(pred_patch, (1, x / ph, y / pw), order=0)
-    lap("zoom_out")
-    rows = []
-    for c in range(1, flags.num_classes):
-        p, g = prediction == c, label == c
-        if not flags.full_metrics:
-            rows.append((M.dc(p, g),))
-        elif p.sum() > 0 and g.sum() > 0:
-            rows.append((M.dc(p, g), M.hd95(p, g), M.asd(p, g)))
-        else:
-            rows.append((M.dc(p, g), 0.0, 0.0))
-    lap("metrics")
+    with tracing.span("test_2d.zoom_in", times):
+        zoomed = zoom(image, (1, ph / x, pw / y), order=0)
+    with tracing.span("test_2d.predict", times):
+        pred_patch = predict_slices(predict, zoomed).cpu().numpy()
+    with tracing.span("test_2d.zoom_out", times):
+        prediction = zoom(pred_patch, (1, x / ph, y / pw), order=0)
+    with tracing.span("test_2d.metrics", times):
+        rows = []
+        for c in range(1, flags.num_classes):
+            p, g = prediction == c, label == c
+            if not flags.full_metrics:
+                rows.append((M.dc(p, g),))
+            elif p.sum() > 0 and g.sum() > 0:
+                rows.append((M.dc(p, g), M.hd95(p, g), M.asd(p, g)))
+            else:
+                rows.append((M.dc(p, g), 0.0, 0.0))
     if test_save_path:
         # the reference's export (test_2D_fully.py:73-81)
-        from cvssl_tpu_torch.utils.nifti import save_nifti
-        sp = (1.0, 1.0, 10.0)
-        for tag, arr in (("pred", prediction), ("img", image),
-                         ("gt", label)):
-            save_nifti(os.path.join(test_save_path, f"{case}_{tag}.nii.gz"),
-                       np.asarray(arr).astype(np.float32), sp)
-        lap("export")
+        with tracing.span("test_2d.export", times):
+            from cvssl_tpu_torch.utils.nifti import save_nifti
+            sp = (1.0, 1.0, 10.0)
+            for tag, arr in (("pred", prediction), ("img", image),
+                             ("gt", label)):
+                save_nifti(os.path.join(test_save_path,
+                                        f"{case}_{tag}.nii.gz"),
+                           np.asarray(arr).astype(np.float32), sp)
     return rows, prediction
 
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from cvssl_tpu_torch.ops import metrics as M
+from cvssl_tpu_torch.utils import tracing
 
 
 def _grid_1d(dim: int, patch: int, stride: int) -> np.ndarray:
@@ -167,7 +168,15 @@ class SlidingWindowEvaluator:
     def predict_volume_async(self, image, predict_args=()):
         """Queue the sliding window for one (D, H, W) volume and return a
         collector that gives its label map, int32 numpy of the volume's
-        shape; the card works on while the caller does other host work."""
+        shape; the card works on while the caller does other host work.
+        The hand-over is the host span ``val3d.predict``; in it each batch
+        of windows is stacked and added into the score map in spans
+        ``val3d.accumulate`` and predicted in a span ``val3d.forward``
+        (``utils/tracing.py``)."""
+        with tracing.span("val3d.predict"):
+            return self._queue(image, predict_args)
+
+    def _queue(self, image, predict_args):
         shape = tuple(image.shape)
         extent, offset, corners = self.plan(shape)
         raw = (slice(None),) + tuple(slice(o, o + s)
@@ -182,12 +191,15 @@ class SlidingWindowEvaluator:
         self._last = (predict_args, len(windows))
         for i in range(0, len(windows), self.patch_batch):
             batch = windows[i:i + self.patch_batch]
-            x = torch.stack([volume[(slice(None),) + w] for w in batch])
-            probs = self._predict(predict_args, x).float()
-            if self._weight is not None:
-                probs = probs * self._weight
-            for k, w in enumerate(batch):
-                score[(slice(None),) + w] += probs[k]
+            with tracing.span("val3d.accumulate"):
+                x = torch.stack([volume[(slice(None),) + w] for w in batch])
+            with tracing.span("val3d.forward"):
+                probs = self._predict(predict_args, x).float()
+            with tracing.span("val3d.accumulate"):
+                if self._weight is not None:
+                    probs = probs * self._weight
+                for k, w in enumerate(batch):
+                    score[(slice(None),) + w] += probs[k]
         label = torch.argmax(score / cnt, dim=0).to(torch.uint8)[raw[1:]]
         if self.device.type != "cuda":
             out = label.numpy()
@@ -305,43 +317,40 @@ def test_all_case_full_metrics(predict_fn, dataset, num_classes: int = 2,
     JAX's writer gives), ``id`` the sample's ``case`` or its index. Volume
     i is scored and exported on the host while the card runs volume i + 1.
     ``times``: a dict that gains the host's seconds waiting for the card
-    (``predict``), scoring (``metrics``) and writing (``export``)."""
+    (``predict``), scoring (``metrics``) and writing (``export``), from
+    the host spans ``test_3d.predict``, ``test_3d.metrics`` and
+    ``test_3d.export`` (``utils/tracing.py``)."""
     import os
-    import time
     ev = SlidingWindowEvaluator(predict_fn, patch_size, num_classes,
                                 stride_xy, stride_z, device=device)
-    clock = {"predict": 0.0, "metrics": 0.0, "export": 0.0}
-    rows = []
-    t = time.perf_counter()
-    for idx, (sample, pred) in enumerate(_scored(ev, dataset, ())):
-        t1 = time.perf_counter()
-        clock["predict"] += t1 - t
-        label = np.asarray(sample["label"])
-        case = []
-        for c in range(1, num_classes):
-            p, g = pred == c, label == c
-            if p.sum() > 0 and g.sum() > 0:
-                case.append(M.calculate_metric_percase_3d(p, g))
-            else:
-                case.append((0.0, 0.0, 0.0, 0.0))
-        rows.append(np.asarray(case))
-        t = time.perf_counter()
-        clock["metrics"] += t - t1
-        if export_dir is not None:
-            from cvssl_tpu_torch.utils.nifti import save_nifti
-            os.makedirs(export_dir, exist_ok=True)
-            ids = sample.get("case", idx)
-            save_nifti(os.path.join(export_dir, f"{ids}_pred.nii.gz"),
-                       pred.astype(np.uint8))
-            save_nifti(os.path.join(export_dir, f"{ids}_img.nii.gz"),
-                       np.asarray(sample["image"], np.float32))
-            save_nifti(os.path.join(export_dir, f"{ids}_lab.nii.gz"),
-                       label.astype(np.uint8))
-            t2 = time.perf_counter()
-            clock["export"] += t2 - t
-            t = t2
     if times is not None:
-        for k, v in clock.items():
-            times[k] = times.get(k, 0.0) + v
+        for k in ("predict", "metrics", "export"):
+            times.setdefault(k, 0.0)
+    scored = _scored(ev, dataset, ())
+    rows = []
+    for idx in range(len(dataset)):
+        with tracing.span("test_3d.predict", times):
+            sample, pred = next(scored)
+        with tracing.span("test_3d.metrics", times):
+            label = np.asarray(sample["label"])
+            case = []
+            for c in range(1, num_classes):
+                p, g = pred == c, label == c
+                if p.sum() > 0 and g.sum() > 0:
+                    case.append(M.calculate_metric_percase_3d(p, g))
+                else:
+                    case.append((0.0, 0.0, 0.0, 0.0))
+            rows.append(np.asarray(case))
+        if export_dir is not None:
+            with tracing.span("test_3d.export", times):
+                from cvssl_tpu_torch.utils.nifti import save_nifti
+                os.makedirs(export_dir, exist_ok=True)
+                ids = sample.get("case", idx)
+                save_nifti(os.path.join(export_dir, f"{ids}_pred.nii.gz"),
+                           pred.astype(np.uint8))
+                save_nifti(os.path.join(export_dir, f"{ids}_img.nii.gz"),
+                           np.asarray(sample["image"], np.float32))
+                save_nifti(os.path.join(export_dir, f"{ids}_lab.nii.gz"),
+                           label.astype(np.uint8))
     rows = np.asarray(rows)
     return rows, rows.mean(axis=0)

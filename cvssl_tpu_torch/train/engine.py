@@ -71,6 +71,7 @@ from cvssl_tpu_torch.train.config import TrainConfig
 from cvssl_tpu_torch.train.methods.base import Method, get_method
 from cvssl_tpu_torch.train.state import StepCtx, TrainState
 from cvssl_tpu_torch.utils import checkpoint as ckpt
+from cvssl_tpu_torch.utils import tracing
 from cvssl_tpu_torch.utils.logging import MetricsWriter, setup_logging
 from cvssl_tpu_torch.utils.profiler import StepWindowProfiler
 
@@ -103,9 +104,10 @@ class Engine:
         # keeps its count maps across validations
         self._evaluators: Dict[tuple, val3d.SlidingWindowEvaluator] = {}
         # K steps a call (``train_steps_scan``/``_fixed``): CUDA graphs of
-        # the step on the card in one process, by (inputs, graph key), their
-        # static inputs, the state they hold (``_check_graphs``), one
-        # memory pool and the capture stream
+        # the step on the card in one process, by (inputs, graph key), with
+        # their static outputs and step phases' events, their static
+        # inputs, the state they hold (``_check_graphs``), one memory pool
+        # and the capture stream
         self.graphed = self.device.type == "cuda" and not \
             self.mesh.distributed
         self._logged_eager = False
@@ -197,7 +199,10 @@ class Engine:
               scalars: torch.Tensor):
         """The step body, one for every entry point and for the CUDA
         graphs: ``scalars`` (n,) float32 on the device is the step's row
-        of :meth:`step_table` with ``names``."""
+        of :meth:`step_table` with ``names``. Its phases
+        (``utils/tracing.py``, inside the caller's recorded step):
+        ``forward`` (the losses), ``backward`` and ``update`` (the
+        all-reduce, the optimizers and the EMAs)."""
         scal = dict(zip(names, scalars.unbind()))
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
@@ -209,29 +214,34 @@ class Engine:
         for m in adversarial:
             m.requires_grad_(False)
         try:
-            loss, metrics = self.method.loss(ctx, batch)
-            loss.backward()
+            with tracing.phase("forward"):
+                loss, metrics = self.method.loss(ctx, batch)
+            with tracing.phase("backward"):
+                loss.backward()
         finally:
             for m in adversarial:
                 m.requires_grad_(True)
         if adversarial:
-            d_loss, d_metrics = self.method.loss_d(ctx, batch)
-            d_loss.backward()
+            with tracing.phase("forward"):
+                d_loss, d_metrics = self.method.loss_d(ctx, batch)
+            with tracing.phase("backward"):
+                d_loss.backward()
             metrics = {**metrics, **d_metrics, "loss_d": d_loss}
-        pmesh.all_reduce_grads(self.mesh, [
-            p for m in state.models.values() for p in m.parameters()])
-        for name, opt in state.optimizers.items():
-            opt.step(lr=scal.get(f"lr_{name}"))
-        decay = scal["ema_decay"]
-        for name in self.method.teacher_names:
-            ema_update(state.teachers[name].parameters(),
-                       state.models[name].parameters(), decay)
-        # parameters only (BatchNorm's weight and bias among them): the
-        # running statistics move by each model's own forward, as Flax's
-        # ``params`` and ``batch_stats`` split them
-        for dst, src in self.method.param_ema_map.items():
-            ema_update(state.models[dst].parameters(),
-                       state.models[src].parameters(), decay)
+        with tracing.phase("update"):
+            pmesh.all_reduce_grads(self.mesh, [
+                p for m in state.models.values() for p in m.parameters()])
+            for name, opt in state.optimizers.items():
+                opt.step(lr=scal.get(f"lr_{name}"))
+            decay = scal["ema_decay"]
+            for name in self.method.teacher_names:
+                ema_update(state.teachers[name].parameters(),
+                           state.models[name].parameters(), decay)
+            # parameters only (BatchNorm's weight and bias among them): the
+            # running statistics move by each model's own forward, as
+            # Flax's ``params`` and ``batch_stats`` split them
+            for dst, src in self.method.param_ema_map.items():
+                ema_update(state.models[dst].parameters(),
+                           state.models[src].parameters(), decay)
         state.step += 1
         return state, {k: v.detach() if torch.is_tensor(v) else v
                        for k, v in metrics.items()}
@@ -261,7 +271,8 @@ class Engine:
         any optimizer step (``parallel/mesh.py``: each rank holds W times
         its rows' share of the gradient of the same loss)."""
         names, table = self.step_table(state, 1)
-        return self._step(state, batch, names, self._upload(table[0]))
+        with tracing.step(self.device):
+            return self._step(state, batch, names, self._upload(table[0]))
 
     # -- device-store path: only indices cross the host boundary ----------
     def attach_store(self, store):
@@ -272,8 +283,10 @@ class Engine:
         return self._upload(np.asarray(indices, np.int64))
 
     def _store_batch(self, state: TrainState, indices: torch.Tensor):
-        return self.store.batch_fn(self.store.arrays(), indices,
-                                   state.generator)
+        """The store's batch at ``indices``: step phase ``gather``."""
+        with tracing.phase("gather"):
+            return self.store.batch_fn(self.store.arrays(), indices,
+                                       state.generator)
 
     def train_step_indices(self, state: TrainState, indices):
         """One step from the attached store: gather + augmentation on the
@@ -282,8 +295,9 @@ class Engine:
         generator."""
         if self.store is None:
             raise RuntimeError("attach_store() first")
-        return self.train_step(state, self._store_batch(
-            state, self._indices(indices)))
+        with tracing.step(self.device):
+            return self.train_step(state, self._store_batch(
+                state, self._indices(indices)))
 
     def host_batch(self, batch: dict) -> dict:
         """A batch of the host pipeline (numpy arrays, or tensors in pinned
@@ -404,7 +418,9 @@ class Engine:
         a replay, as the eager step does; the generator is registered with
         each graph, so a replay draws the eager stream and advances it as
         far. The last step's metrics are cloned out of the graph's static
-        outputs. A failed capture or replay raises."""
+        outputs. Each graph holds the events of its step's phases
+        (``utils/tracing.py``), and after a replay the registry reads its
+        step from them. A failed capture or replay raises."""
         self._check_graphs(state)
         names, table = self.step_table(state, k)
         scal = self._upload(table)
@@ -431,9 +447,10 @@ class Engine:
                 st["batch"][n].copy_(v)
 
         def run():
-            b = (self._store_batch(state, st["indices"])
-                 if indices is not None else st["batch"])
-            return self._step(state, b, names, st["scalars"])[1]
+            with tracing.step(self.device):
+                b = (self._store_batch(state, st["indices"])
+                     if indices is not None else st["batch"])
+                return self._step(state, b, names, st["scalars"])[1]
 
         metrics = None
         for r in range(k):
@@ -444,12 +461,13 @@ class Engine:
             entry = self._graphs.get(key)
             if entry is None:
                 metrics, graph, static = self._capture_step(state, run)
-                self._graphs[key] = (graph, static)
+                self._graphs[key] = (graph, static, tracing.take_captured())
                 held = self._state_tensors(state)
                 self._graph_state = (held, [t.data_ptr() for t in held[1:]])
                 continue
-            graph, metrics = entry
+            graph, metrics, marks = entry
             graph.replay()
+            tracing.replayed(marks)
             state.step += 1
             for opt in state.optimizers.values():
                 opt.count += 1
@@ -792,7 +810,10 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
     host transform where it does not (``DeviceVolumeStore.takes_patch``
     and ``estimated_bytes`` decide). Validation is the
     sliding window (:meth:`Engine.validate`).
-    With ``profile_dir``, steps 10-20 are traced there
+    The result's ``step_ms`` is the last step's time by phase
+    (``utils/tracing.py::step_ms``: device ms on the card, host ms on the
+    CPU), logged beside the rate. With ``profile_dir``, steps 10-20 are
+    traced there
     (:class:`~cvssl_tpu_torch.utils.profiler.StepWindowProfiler`, ticked
     after each call of the step loop, so a chunk of ``scan_steps`` moves
     the window's ends to the chunk's end, as in JAX).
@@ -1058,14 +1079,17 @@ def fit(cfg: TrainConfig, engine: Optional[Engine] = None,
         torch.cuda.synchronize(engine.device)
     elapsed = time.time() - t0
     throughput = images_seen / elapsed if elapsed > 0 else 0.0
+    step_ms = tracing.step_ms()
     saver.close()  # join outstanding checkpoint writes before returning
     pmesh.barrier(mesh)    # every rank returns with rank 0's files written
     if profiler is not None:
         profiler.close()
     writer.close()
-    logger.info("training finished: %.2f %s/sec, best dice %s",
-                throughput, "volumes" if cfg.dim == 3 else "slices",
+    logger.info("training finished: %.2f %s/sec, last step's phases (ms) "
+                "%s, best dice %s", throughput,
+                "volumes" if cfg.dim == 3 else "slices",
+                " ".join(f"{k} {v:.3f}" for k, v in step_ms.items()),
                 best_dice)
     return {"best_dice": best_dice, "iterations": it,
             "slices_per_sec": throughput, "val_seconds": val_seconds,
-            "state": state}
+            "step_ms": step_ms, "state": state}

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from cvssl_tpu_torch.parallel.mesh import Mesh, split_call
+from cvssl_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -100,9 +101,10 @@ class StepCtx:
 
     def forward_teacher(self, name: str, x: torch.Tensor):
         """EMA-teacher forward under no_grad, in train mode like the
-        reference."""
+        reference; step phase ``teacher``."""
         model = self.teachers[name]
-        with torch.no_grad(), self._autocast(name, x):
+        with tracing.phase("teacher"), torch.no_grad(), \
+                self._autocast(name, x):
             return self._call(model, x, self.generator)
 
     def forward_teacher_scan(self, name: str, x_groups: torch.Tensor):
@@ -114,9 +116,11 @@ class StepCtx:
         buffers update pass after pass; each pass draws its own dropout
         bytes. Returns the logits stacked on a leading group axis; with a
         mesh each group's batch is split. JAX:
-        ``StepCtx.forward_teacher_scan`` (a ``lax.scan``)."""
+        ``StepCtx.forward_teacher_scan`` (a ``lax.scan``). Step phase
+        ``teacher``."""
         model = self.teachers[name]
-        with torch.no_grad(), self._autocast(name, x_groups):
+        with tracing.phase("teacher"), torch.no_grad(), \
+                self._autocast(name, x_groups):
             return torch.stack([self._call(model, xg, self.generator)
                                 for xg in x_groups])
 

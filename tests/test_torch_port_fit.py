@@ -367,7 +367,11 @@ def test_fit_writes_the_contract_files(trees, tmp_path):
     result = _fit(cfg, 4)
     assert result["iterations"] == 4 and result["state"].step == 4
     assert len(result["val_seconds"]) == 2
+    assert set(result["step_ms"]) == {"gather", "forward", "teacher",
+                                      "backward", "update"}
     snap = cfg.snapshot_path()
+    with open(os.path.join(snap, "log.txt")) as f:
+        assert "last step's phases (ms) gather" in f.read()
     files = set(os.listdir(snap))
     for name in ("unet_best_model.ckpt", "iter_2.ckpt", "iter_4.ckpt",
                  "ema_model_iter_2.ckpt", "ema_model_iter_4.ckpt",
