@@ -341,7 +341,27 @@ the run with a non-zero exit:
    events that ``elapsed_time`` cannot read end the phase.
    ``--tracing-only`` builds the CE+Dice source alone and runs only this
    phase;
-17. one JSON line of the kernels (kernel #1's with its launches in each
+17. train-mode BatchNorm + LeakyReLU (``csrc/batch_norm_act.cu``), run
+   after phase 15, before phase 16: (a) the kernels through
+   ``batch_norm_act`` against its plain version (``F.batch_norm``, then
+   ``F.leaky_relu``) on the card, forward and backward, at config 2's
+   five (channels, side) levels, the shapes of its 18 layers, at batch
+   24 and 12, bf16 and float32, slope 0.01; the identity at the widest
+   and narrowest; the scalar loop at a ragged (3, 5, 37, 41) and at the
+   widest shape at an unaligned offset; 5D (2, 16, 48, 48, 48): y, the
+   running statistics, dx, dw, db against the plain version and the
+   batch mean and variance against float64, each within its stated
+   tolerance (``BN_*``), and the launches bit-equal across two calls;
+   (b) the forward and the backward at (24, 16, 256, 256) bf16 beside
+   their byte bounds, the plain version and ``F.batch_norm`` +
+   ``F.leaky_relu`` (``library_ms``), CUDA events, 1 GiB L2 flush, median
+   of 50; (c) config 2's graphed mean_teacher from step 25000: slices/s
+   over 30 steps, then one profiled call of 10 replays, in which no ATen
+   ``batch_norm_`` kernel runs and the new kernels run for all 18 layers
+   in the student's forward, the teacher's forward and the student's
+   backward of every step. ``--batchnorm-only`` builds the CE+Dice and
+   BatchNorm sources alone and runs only this phase;
+18. one JSON line of the kernels (kernel #1's with its launches in each
    method's run of phases 5, 5b, 8, 9, 10 and 11, in each rank of phase
    13a (``mean_teacher_rank{r}_of_2``, its 10 steps), in each graphed
    call profiled in phase 14 (``mean_teacher_graphed``,
@@ -361,8 +381,10 @@ the run with a non-zero exit:
    ``mean_teacher_efficient_unet_pretrained_fit`` and
    ``cross_teaching_vit_seg_pretrained_fit``; under ``at_5d`` its error
    and times at config 5's shape, under ``at_nnunet`` at nnUNet's, under
-   ``at_unetr`` and ``at_swinunetr`` at the ViTs'), then the result line
-   ``{"ok": true, "device": {...}}``.
+   ``at_unetr`` and ``at_swinunetr`` at the ViTs'; the conv kernels';
+   the BatchNorm kernels' ``bn_act_fwd`` and ``bn_act_bwd`` with phase
+   17's largest errors, times and device kernels in its profiled graphed
+   call), then the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -648,6 +670,44 @@ TRACE_VOLUMES, TRACE_COVER = 6, 0.95
 TRACE_PHASES = ("gather", "forward", "backward", "update")
 PROGRAM_SPANS = TRACE_PHASES + ("teacher", "val3d.predict", "val3d.forward",
                                 "val3d.accumulate")
+
+# phase 17: train-mode BatchNorm + LeakyReLU (``csrc/batch_norm_act.cu``):
+# config 2's five (channels, side) levels, each the shape of 2 to 4 of its
+# 18 layers, at the student's and the teacher's batch
+BN_LEVELS = ((16, 256), (32, 128), (64, 64), (128, 32), (256, 16))
+BN_BATCHES = (BATCH, LABELED_BS)
+BN_SLOPE, BN_MOMENTUM, BN_EPS = 0.01, 0.1, 1e-5
+BN_LAYERS = 18                 # BatchNorms of config 2's UNet
+BN_TIMED_SHAPE = (BATCH, 16, PATCH, PATCH)
+# the batch mean and variance against float64 of the same input: float32
+# sums over up to 1.57 M values a channel, of (|mean| + std)
+BN_STAT_TOL = 1e-5
+# dx against float64 of the same inputs on the kernels' LeakyReLU branches
+# (the sign of their y: where z lies within float32's rounding of 0 either
+# branch is right, and one element's branch moves its channel's db by
+# |dy|), of the largest |dx|: bf16's one rounding of dx (2^-8) and
+# float32's error beside it; float32's sums and differences
+BN_DX64_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# dw, db (float32 sums, either dtype) against float64 on the same branches,
+# of the sums of their terms' magnitudes, which bound a sum's rounding
+BN_SUM64_TOL = 1e-5
+# y, dx against the plain version (ATen's BatchNorm, then LeakyReLU),
+# |got - want| <= rtol |want| + atol max |want|: in bf16 (unit roundoff
+# 2^-8) the plain version rounds BatchNorm's output and then LeakyReLU's
+# (and LeakyReLU's gradient before BatchNorm's backward), the kernels once;
+# in float32 the plain version's BatchNorm is cuDNN's, and a branch taken
+# the other way within float32's rounding of z = 0 moves a channel's dx by
+# |dy| / M of the largest (1.15e-5 at (12, 64, 64, 64), measured on one H100)
+BN_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+BN_ATOL = {"bfloat16": 2.0 ** -8, "float32": 1e-4}
+# dx against the plain version is compared where |z| > BN_KINK only:
+# LeakyReLU's derivative jumps at z = 0
+BN_KINK = 1e-4
+# dw, db against the plain version, of the sums of their terms' magnitudes,
+# beyond what the elements whose branch the two took apart move (counted):
+# the plain version's bf16 LeakyReLU gradients are rounded (2^-8 each),
+# float32's sums run in other orders
+BN_GRAD_SUM_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 
 # (memory bytes/s, float32 non-tensor FLOP/s, TF32 tensor-core FLOP/s) by
 # card; NVIDIA data sheets, dense rates (half the "with sparsity" figures)
@@ -5066,6 +5126,351 @@ def run_tracing(device, card):
     print(f"phase 16 (tracing): {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: train-mode BatchNorm + LeakyReLU as hand-written kernels
+# ---------------------------------------------------------------------------
+
+def bn_inputs(device, gen, shape, dtype):
+    """x (a mean away from 0), w, b, running buffers and a cotangent."""
+    import torch
+    c = shape[1]
+
+    def r(*s):
+        return torch.randn(*s, generator=gen, device=device)
+    return {"x": (1.5 * r(shape) + 0.5).to(dtype), "w": 1.0 + 0.2 * r(c),
+            "b": 0.1 * r(c), "rm": 0.1 * r(c), "rv": 1.0 + 0.1 * r(c).abs(),
+            "dy": r(shape).to(dtype)}
+
+
+def bn_float64(x, w, b, dy, eps, slope, pos=None):
+    """The batch mean and biased variance, the pre-activation z, dx, dw, db
+    and the scales of dw's and db's sums (the sums of their terms'
+    magnitudes) in float64 from x's and dy's values; LeakyReLU's branch
+    from ``pos`` (where z > 0) if given, else from z."""
+    dims = [0] + list(range(2, x.ndim))
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    xd = x.double()
+    mean = xd.mean(dims)
+    d = xd - mean.view(shape)
+    var = (d * d).mean(dims)
+    invstd = 1.0 / (var + eps).sqrt()
+    z = d * (invstd * w.double()).view(shape) + b.double().view(shape)
+    g = dy.double()
+    if slope is not None:
+        g = g.where(z > 0 if pos is None else pos, g * slope)
+    db = g.sum(dims)
+    dw = invstd * (g * d).sum(dims)
+    m = x.numel() // x.shape[1]
+    dx = (invstd * w.double()).view(shape) * (
+        g - (db / m).view(shape) - d * (invstd * dw / m).view(shape))
+    return {"mean": mean, "var": var, "z": z, "dx": dx, "dw": dw, "db": db,
+            "d": d, "invstd": invstd, "db_scale": g.abs().sum(dims),
+            "dw_scale": invstd * (g * d).abs().sum(dims)}
+
+
+def bn_close(what, got, want, rtol, atol_of_max, where=None):
+    """Largest |got - want|; raises beyond rtol |want| + atol max |want|
+    (over ``where`` if given)."""
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    bad = err > rtol * w.abs() + atol_of_max * float(w.abs().max())
+    if where is not None:
+        bad &= where
+        err = err.where(where, err.new_zeros(()))
+    if bool(bad.any()):
+        raise SystemExit(f"{what}: {int(bad.sum())} elements off, max abs "
+                         f"err {float(err.max())}")
+    return float(err.max())
+
+
+def bn_sums_off(what, w_grad, b_grad, ref, tol, allow=(0.0, 0.0)):
+    """dw's and db's largest gap to ``ref``'s, less ``allow`` (dw's, db's),
+    each of its sum's terms' magnitudes; raises beyond ``tol``."""
+    e_dw = float((((w_grad.double() - ref["dw"]).abs() - allow[0])
+                  / ref["dw_scale"]).max())
+    e_db = float((((b_grad.double() - ref["db"]).abs() - allow[1])
+                  / ref["db_scale"]).max())
+    if not max(e_dw, e_db) <= tol:
+        raise SystemExit(f"{what}: dw {e_dw:.3g}, db {e_db:.3g} of their "
+                         f"sums' magnitudes, over {tol:.3g}")
+    return max(e_dw, e_db)
+
+
+def bn_case(device, gen, shape, dtype, slope, offset, err):
+    """One case: the kernels (through ``batch_norm_act``'s autograd) against
+    float64 of the same inputs on the kernels' LeakyReLU branches (the sign
+    of their y) and against the plain version on the card, forward and
+    backward; the direct launches bit-equal across two calls. The largest
+    errors go into ``err``."""
+    import torch
+    from cvssl_tpu_torch.ops import batch_norm_act as bna
+
+    t = bn_inputs(device, gen, shape, dtype)
+    name = str(dtype)[6:]
+    tag = (f"{tuple(shape)} {name} slope {slope}"
+           f"{' offset' if offset else ''}")
+    x = offset_view(t["x"]) if offset else t["x"].clone()
+    geo = bna._geometry(x, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    width = 16 // x.element_size()
+    if geo.vector != (not offset and math.prod(shape[2:]) % width == 0):
+        raise SystemExit(f"{tag}: vector path {geo.vector}")
+    w, b = (t[k].clone().requires_grad_(True) for k in ("w", "b"))
+    rm, rv = t["rm"].clone(), t["rv"].clone()
+    x.requires_grad_(True)
+    y = bna.batch_norm_act(x, w, b, rm, rv, BN_MOMENTUM, BN_EPS, slope)
+    y.backward(t["dy"])
+
+    xp = t["x"].clone().requires_grad_(True)
+    wp, bp = (t[k].clone().requires_grad_(True) for k in ("w", "b"))
+    rmp, rvp = t["rm"].clone(), t["rv"].clone()
+    yp = bna.batch_norm_act_plain(xp, wp, bp, rmp, rvp, BN_MOMENTUM, BN_EPS,
+                                  slope)
+    yp.backward(t["dy"])
+    ref = bn_float64(t["x"], t["w"], t["b"], t["dy"], BN_EPS, slope,
+                     None if slope is None else y.detach() > 0)
+    _, stats = bna._forward_cuda(x.detach(), t["w"], t["b"],
+                                 t["rm"].clone(), t["rv"].clone(),
+                                 BN_MOMENTUM, BN_EPS,
+                                 1.0 if slope is None else slope)
+    torch.cuda.synchronize()
+    c = shape[1]
+    scale = ref["mean"].abs() + ref["var"].sqrt()
+    e_stat = max(float(((stats[:c].double() - ref["mean"]) / scale)
+                       .abs().max()),
+                 float(((stats[c:2 * c].double() - ref["var"])
+                        / ref["var"]).abs().max()))
+    if not e_stat <= BN_STAT_TOL:
+        raise SystemExit(f"{tag}: batch statistics off by {e_stat:.3g}")
+    if y.dtype != dtype or x.grad.dtype != dtype:
+        raise SystemExit(f"{tag}: y {y.dtype}, dx {x.grad.dtype}")
+    # against float64 on the kernels' branches: their own arithmetic
+    top = float(ref["dx"].abs().max())
+    e_dx64 = float((x.grad.double() - ref["dx"]).abs().max()) / top
+    if not e_dx64 <= BN_DX64_TOL[name]:
+        raise SystemExit(f"{tag}: dx off float64 by {e_dx64:.3g} of the "
+                         "largest")
+    e_sum64 = bn_sums_off(f"{tag} against float64", w.grad, b.grad, ref,
+                          BN_SUM64_TOL)
+    # against the plain version
+    rtol, atol = BN_RTOL[name], BN_ATOL[name]
+    e_run = max(bn_close(f"{tag} running mean", rm, rmp, 1e-5, 1e-5),
+                bn_close(f"{tag} running var", rv, rvp, 1e-5, 1e-5))
+    e_y = bn_close(f"{tag} y", y.detach(), yp.detach(), rtol, atol)
+    away = (ref["z"].abs() > BN_KINK) if slope is not None else None
+    e_dx = bn_close(f"{tag} dx", x.grad, xp.grad, rtol, atol, away)
+    # the elements whose LeakyReLU branch the two versions took apart (z
+    # within rounding of 0): each moves db by (1 - slope) |dy| and dw by
+    # (1 - slope) |dy (x - mean)| invstd, allowed for exactly
+    flips, allow = 0, (0.0, 0.0)
+    if slope is not None:
+        flip = (y.detach() > 0) != (yp.detach() > 0)
+        flips = int(flip.sum())
+        moved = t["dy"].double().abs() * (1.0 - slope) * flip
+        dims = [0] + list(range(2, len(shape)))
+        allow = (ref["invstd"] * (moved * ref["d"].abs()).sum(dims),
+                 moved.sum(dims))
+    e_sum = bn_sums_off(f"{tag} against the plain version", w.grad, b.grad,
+                        {"dw": wp.grad.double(), "db": bp.grad.double(),
+                         "dw_scale": ref["dw_scale"],
+                         "db_scale": ref["db_scale"]},
+                        BN_GRAD_SUM_TOL[name], allow)
+
+    # determinism: the same inputs give the same bits, call after call
+    xs = x.detach()
+    fwd = [bna._forward_cuda(xs, t["w"], t["b"], r_m, r_v, BN_MOMENTUM,
+                             BN_EPS, 1.0 if slope is None else slope)
+           for r_m, r_v in ((t["rm"].clone(), t["rv"].clone()),
+                            (t["rm"].clone(), t["rv"].clone()))]
+    bwd = [bna._backward_cuda(xs, t["dy"], t["w"], t["b"], fwd[0][1],
+                              1.0 if slope is None else slope)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(*fwd))
+            and all(torch.equal(a, b) for a, b in zip(*bwd))):
+        raise SystemExit(f"{tag}: two calls on the same inputs differ")
+    for k, v in (("fwd", max(e_y, e_run)), ("bwd", e_dx), ("stats", e_stat),
+                 ("dx64", e_dx64), ("dw_db64", e_sum64), ("dw_db", e_sum)):
+        err[k] = max(err[k], v)
+    kinks = "" if away is None else f", {int((~away).sum())} at the kink"
+    print(f"batchnorm check {tag}: {c} x {geo.splits} blocks of {geo.per} "
+          f"packs of {geo.vec}; against float64: mean/var {e_stat:.3g}, dx "
+          f"{e_dx64:.3g} of the largest, dw/db {e_sum64:.3g} of their sums; "
+          f"against the plain version: y {e_y:.3g}, running {e_run:.3g}, dx "
+          f"{e_dx:.3g}{kinks}, dw/db {e_sum:.3g} ({flips} branches taken "
+          f"apart); bit-equal on repeat")
+
+
+def check_batchnorm(device):
+    """Phase 17a: every level of config 2 at both batches in bf16 and
+    float32, slope 0.01; the identity at the widest and narrowest levels;
+    the scalar loop (a ragged shape, the widest level at an unaligned
+    offset); a 5D shape."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(17)
+    err = {k: 0.0 for k in ("fwd", "bwd", "stats", "dx64", "dw_db64",
+                            "dw_db")}
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((n, c, s, s), dt, BN_SLOPE, False) for n in BN_BATCHES
+             for c, s in BN_LEVELS for dt in (bf16, f32)]
+    cases += [((BATCH, c, s, s), dt, None, False)
+              for c, s in (BN_LEVELS[0], BN_LEVELS[-1]) for dt in (bf16, f32)]
+    cases += [((3, 5, 37, 41), dt, BN_SLOPE, False) for dt in (bf16, f32)]
+    cases += [(BN_TIMED_SHAPE, bf16, BN_SLOPE, True),
+              ((2, 16, 48, 48, 48), f32, None, False),
+              ((2, 16, 48, 48, 48), bf16, BN_SLOPE, False)]
+    for shape, dtype, slope, offset in cases:
+        bn_case(device, gen, shape, dtype, slope, offset, err)
+    return err
+
+
+def time_batchnorm(device, mem_bw):
+    """Phase 17b: the forward (statistics + apply) and the backward (sums +
+    apply) at (24, 16, 256, 256) bf16, slope 0.01, median of 50 with a 1 GiB
+    L2 flush before each, beside their byte bounds (each input read once,
+    each output written once), the plain version and ``F.batch_norm`` +
+    ``F.leaky_relu`` (``library_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    from cvssl_tpu_torch.ops import batch_norm_act as bna
+
+    gen = torch.Generator(device=device).manual_seed(171)
+    t = bn_inputs(device, gen, BN_TIMED_SHAPE, torch.bfloat16)
+    x, w, b, dy = t["x"], t["w"], t["b"], t["dy"]
+    flush = torch.empty(2 ** 28, dtype=torch.int32, device=device)
+    _, stats = bna._forward_cuda(x, w, b, t["rm"], t["rv"], BN_MOMENTUM,
+                                 BN_EPS, BN_SLOPE)
+
+    def plain(xp, wp, bp, rm, rv):
+        return bna.batch_norm_act_plain(xp, wp, bp, rm, rv, BN_MOMENTUM,
+                                        BN_EPS, BN_SLOPE)
+
+    def library(xp, wp, bp, rm, rv):
+        return F.leaky_relu(F.batch_norm(xp, rm, rv, wp, bp, True,
+                                         BN_MOMENTUM, BN_EPS), BN_SLOPE)
+
+    def forward(fn):
+        def call():
+            with torch.no_grad():
+                fn(x, w, b, t["rm"], t["rv"])
+        return call
+
+    def backward(fn):
+        # running buffers of the graph's own: F.batch_norm saves them for
+        # its backward, and nothing may update them in place after
+        leaves = [v.clone().requires_grad_(True) for v in (x, w, b)]
+        y = fn(*leaves, t["rm"].clone(), t["rv"].clone())
+        return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    n = x.numel() * x.element_size()
+    timed = {
+        "bn_act_fwd": (lambda: bna._forward_cuda(
+            x, w, b, t["rm"], t["rv"], BN_MOMENTUM, BN_EPS, BN_SLOPE),
+            forward(plain), forward(library), 2 * n),
+        "bn_act_bwd": (lambda: bna._backward_cuda(x, dy, w, b, stats,
+                                                  BN_SLOPE),
+                       backward(plain), backward(library), 3 * n)}
+    rows = {}
+    for k, (kern, plain_fn, lib_fn, io) in timed.items():
+        r = rows[k] = {"ms": median_ms(kern, flush),
+                       "plain_ms": median_ms(plain_fn, flush),
+                       "library_ms": median_ms(lib_fn, flush),
+                       "bound_ms": io / mem_bw * 1e3, "bound_by": "bytes",
+                       "bytes": io, "l2": l2_states(kern, flush)}
+        print(f"kernel {k} at {BN_TIMED_SHAPE} bfloat16 slope {BN_SLOPE}: "
+              f"kernel_ms {r['ms']:.6f} plain_ms {r['plain_ms']:.6f} "
+              f"library_ms {r['library_ms']:.6f} bound_us "
+              f"{r['bound_ms'] * 1e3:.3f} (bytes, {io} bytes); "
+              f"{r['ms'] / r['bound_ms']:.2f}x the bound; clean L2 "
+              f"{r['l2']['clean']:.6f} ms, warm L2 {r['l2']['warm']:.6f} ms")
+    return rows
+
+
+def profile_batchnorm_step(card):
+    """Phase 17c: config 2's mean_teacher from the slice store, graphed
+    calls of GRAPH_K steps from step TRACE_START: slices/s over
+    GRAPH_TIMED steps, then one profiled call, in which no ATen
+    ``batch_norm_`` kernel may run and the new kernels run BN_LAYERS times
+    in each of the student's forward, the teacher's forward and the
+    student's backward, each step (two kernels each way). Returns the
+    counts and shares of the profiled call."""
+    import torch
+    from cvssl_tpu_torch.data.device_store import DeviceSliceStore
+    from cvssl_tpu_torch.ops import batch_norm_act as bna
+    from cvssl_tpu_torch.train.engine import Engine
+
+    cfg = method_config("mean_teacher")
+    engine = Engine(cfg)
+    engine.attach_store(DeviceSliceStore(SyntheticACDC(), cfg.patch_size))
+    stream = two_stream(17).epochs()
+
+    def rows(k=GRAPH_K):
+        return [next(stream) for _ in range(k)]
+    state = engine.init_state()
+    state.step = TRACE_START
+    bna.reset_launches()
+    state, _ = engine.train_steps_scan(state, rows())
+    torch.cuda.synchronize()
+    captured = dict(bna.LAUNCHES)
+    calls = GRAPH_TIMED // GRAPH_K
+    dt = time_calls(lambda: engine.train_steps_scan(state, rows()), calls)
+    rate = calls * GRAPH_K * BATCH / dt
+    dev, _ = profiled_ops(lambda: engine.train_steps_scan(state, rows()))
+    busy_us = union_us(dev)
+    by = {}
+    for s_, e_, n_ in dev:
+        by[n_] = by.get(n_, 0.0) + (e_ - s_)
+    aten = {n_: v for n_, v in by.items() if "batch_norm_" in n_}
+    ours = {}
+    for s_, e_, n_ in dev:
+        if "bnact_" in n_:
+            k = re.search(r"bnact_\w+?_kernel", n_).group(0)
+            ours[k] = ours.get(k, 0) + 1
+    want = {"bnact_stats_kernel": 2 * BN_LAYERS * GRAPH_K,
+            "bnact_apply_kernel": 2 * BN_LAYERS * GRAPH_K,
+            "bnact_bwd_reduce_kernel": BN_LAYERS * GRAPH_K,
+            "bnact_bwd_apply_kernel": BN_LAYERS * GRAPH_K}
+    share = 100.0 * sum(v for n_, v in by.items()
+                        if "bnact_" in n_ or "batch_norm_" in n_) / busy_us
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:12]
+    print(f"phase 17c mean_teacher config 2 graphed: {rate:.2f} slices/s "
+          f"({dt / (calls * GRAPH_K) * 1e3:.3f} ms/step over "
+          f"{calls * GRAPH_K} steps); wrapper host calls over the first "
+          f"call (warm-up and capture) {captured}; profiled call: busy "
+          f"{busy_us / 1e3 / GRAPH_K:.3f} ms/step, BatchNorm kernels "
+          f"{share:.2f}% of busy, new kernels {ours}, ATen batch_norm_ "
+          f"kernels {len(aten)}; top device ops (ms a step): "
+          + "; ".join(f"{trace_name(n_)} {v / 1e3 / GRAPH_K:.3f}"
+                      for n_, v in top) + f", on {card}")
+    if aten:
+        raise SystemExit(f"phase 17c: ATen BatchNorm kernels ran: "
+                         f"{sorted(aten)}")
+    if ours != want:
+        raise SystemExit(f"phase 17c: the new kernels ran {ours}, not "
+                         f"{want}")
+    return {"rate": rate, "kernels": ours, "share": share}
+
+
+def trace_name(name, width=60):
+    return re.sub(r"[^A-Za-z0-9_.:<>-]+", "_", name)[:width]
+
+
+def run_batchnorm(device, card, mem_bw):
+    """Phase 17: the BatchNorm kernels checked, timed, and seen in a
+    profiled graphed step (see the module's docstring)."""
+    t_phase = t0 = time.perf_counter()
+    err = check_batchnorm(device)
+    print(f"phase 17a: {time.perf_counter() - t0:.1f} s; largest errors "
+          + " ".join(f"{k} {v:.3g}" for k, v in err.items()))
+    t0 = time.perf_counter()
+    timing = time_batchnorm(device, mem_bw)
+    print(f"phase 17b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    step = profile_batchnorm_step(card)
+    print(f"phase 17c: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 17 (BatchNorm): {time.perf_counter() - t_phase:.1f} s")
+    return {"err": err, "timing": timing, "step": step}
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5121,6 +5526,12 @@ def main(argv=None) -> int:
         "phases of graphed and eager steps, the sliding window's spans "
         "under the profiler), then stop without the result line")
     parser.add_argument(
+        "--batchnorm-only", dest="only_batchnorm", action="store_true",
+        help="build only csrc/fused_ce_dice.cu and csrc/batch_norm_act.cu "
+        "and run phase 17 (the BatchNorm kernels checked and timed, a "
+        "profiled graphed mean-teacher step), then stop without the result "
+        "line: the short call after a change to the BatchNorm kernels")
+    parser.add_argument(
         "--par-cli-fit", metavar="DIR", default=None,
         help="phase 13b's child: the CLI's config-2 fit into DIR (with "
         "--distributed, under torchrun); phase 13 starts it")
@@ -5133,6 +5544,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from cvssl_tpu_torch.ops import _cuda_build
+    from cvssl_tpu_torch.ops import batch_norm_act as bna
     from cvssl_tpu_torch.ops import conv3x3_p8 as cv
     from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
@@ -5156,6 +5568,10 @@ def main(argv=None) -> int:
                else [("conv3x3_p8", cv._library)])
     if not args.conv_only:
         sources.insert(0, ("fused_ce_dice", fcd._library))
+    if args.only_batchnorm:
+        sources = [("fused_ce_dice", fcd._library)]
+    if not (args.conv_only or args.only_3d or args.only_vit3d):
+        sources.insert(1, ("batch_norm_act", bna._library))
     builders = {name: threading.Thread(target=build, args=(name, load))
                 for name, load in sources}
     for t in builders.values():
@@ -5193,6 +5609,12 @@ def main(argv=None) -> int:
         return 0
 
     wait("fused_ce_dice")
+    if args.only_batchnorm:
+        wait("batch_norm_act")
+        run_batchnorm(device, smi, mem_bw)
+        print("chip_smoke --batchnorm-only: phase 17 passed; no result line "
+              "(the other phases did not run)")
+        return 0
     if args.only_3d:
         run_3d(device, smi, True, mem_bw, f32_rate)
         print("chip_smoke --3d-only: phase 8 passed; no result line (the "
@@ -5269,6 +5691,8 @@ def main(argv=None) -> int:
     methods.update(run_parallel(device, smi))
     methods.update(run_graphs(smi))
     methods.update(run_library(smi))
+    wait("batch_norm_act")
+    bn = run_batchnorm(device, smi, mem_bw)
     # last: the profiler's sessions slow every later launch
     run_tracing(device, smi)
     methods["mean_teacher_profiled_fit"] = {
@@ -5315,6 +5739,16 @@ def main(argv=None) -> int:
                  "bound_by": conv_timing[k]["bound_by"],
                  "library_ms": conv_timing[k]["library_ms"]}
                 for k in cv.LAUNCHES]
+    kernels += [{"name": k, "route": "cuda",
+                 "source": "cvssl_tpu_torch/csrc/batch_norm_act.cu",
+                 "replaces": None,
+                 "device_kernels_in_a_graphed_call": bn["step"]["kernels"],
+                 "max_abs_err": bn["err"], "ms": bn["timing"][k]["ms"],
+                 "plain_ms": bn["timing"][k]["plain_ms"],
+                 "bound_ms": bn["timing"][k]["bound_ms"],
+                 "bound_by": bn["timing"][k]["bound_by"],
+                 "library_ms": bn["timing"][k]["library_ms"]}
+                for k in bna.LAUNCHES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cvssl_tpu_torch.ops.batch_norm_act import batch_norm_act
 from cvssl_tpu_torch.ops.dropout import BitsDropout
 from cvssl_tpu_torch.parallel import mesh as pmesh
 
@@ -31,10 +32,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance follows the BIASED batch variance (torch's own uses the
     unbiased one). eps 1e-5, momentum 0.1 (flax's 0.9).
 
-    The batch statistics come out of the normalisation itself: run with
-    momentum 1 on scratch buffers, ``F.batch_norm`` (cuDNN on the card)
-    leaves the batch mean and unbiased variance there, so the update costs no
-    second pass over the activations.
+    In train mode :meth:`forward_act` runs ``ops/batch_norm_act.py``: on the
+    CPU its plain version (``F.batch_norm`` with momentum 1 on scratch
+    buffers, which leaves the batch mean and unbiased variance there, so the
+    update costs no second pass over the activations); on the card its
+    kernels, which split each channel's reduction over many blocks (ATen's
+    native NCHW kernels run one block a channel) and can fuse the LeakyReLU
+    that follows. ``forward`` is ``forward_act`` with no activation.
 
     Inside a split model call (``parallel/mesh.py::split_call``) the batch
     is the global one: the mean and then the biased variance over it come
@@ -43,22 +47,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     they stay equal on every rank."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_act(x)
+
+    def forward_act(self, x: torch.Tensor,
+                    slope: Optional[float] = None) -> torch.Tensor:
+        """This norm, then LeakyReLU(``slope``) unless ``slope`` is None."""
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        split = pmesh.current_split()
-        if split is not None:
-            return _global_batch_norm(self, x, split.mesh)
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
-                         self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
-        return y
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+        elif (split := pmesh.current_split()) is not None:
+            y = _global_batch_norm(self, x, split.mesh)
+        else:
+            return batch_norm_act(
+                x.contiguous() if x.is_cuda else x, self.weight, self.bias,
+                self.running_mean, self.running_var, self.momentum, self.eps,
+                slope)
+        return y if slope is None else F.leaky_relu(y, slope)
 
 
 def _global_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
@@ -117,10 +121,12 @@ class ConvBlock(nn.Module):
             nn.LeakyReLU(0.01))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        # each BatchNorm with the LeakyReLU after it as one op (fused on
+        # the card); the Sequential keeps its 7 entries for the checkpoints
         c = self.conv_conv
-        x = c[2](c[1](c[0](x)))
+        x = c[1].forward_act(c[0](x), c[2].negative_slope)
         x = c[3](x, generator)
-        return c[6](c[5](c[4](x)))
+        return c[5].forward_act(c[4](x), c[6].negative_slope)
 
 
 class DownBlock(nn.Module):

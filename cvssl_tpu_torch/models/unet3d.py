@@ -44,6 +44,7 @@ class BatchNorm3d(nn.BatchNorm3d):
     AttentionUNet3D's gates)."""
 
     forward = unet.BatchNorm2d.forward
+    forward_act = unet.BatchNorm2d.forward_act
 
 
 def _no_autocast(x: torch.Tensor):

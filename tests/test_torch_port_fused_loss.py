@@ -17,6 +17,7 @@ import torch
 from cvssl_tpu.ops import losses as jlosses
 from cvssl_tpu.ops.pallas_kernels import _fused_bwd, fused_ce_dice_tpu
 from cvssl_tpu_torch.ops import _cuda_build
+from cvssl_tpu_torch.ops import batch_norm_act
 from cvssl_tpu_torch.ops import conv3x3_p8
 from cvssl_tpu_torch.ops import fused_ce_dice as fcd
 
@@ -205,8 +206,9 @@ def _c_interface(src: str):
     return found
 
 
-@pytest.mark.parametrize("module", [fcd, conv3x3_p8],
-                         ids=["fused_ce_dice", "conv3x3_p8"])
+@pytest.mark.parametrize("module", [fcd, conv3x3_p8, batch_norm_act],
+                         ids=["fused_ce_dice", "conv3x3_p8",
+                              "batch_norm_act"])
 def test_ctypes_declarations_match_the_c_interface(module):
     """Each C function's argument count and pointer types against the
     ``argtypes`` the wrapper declares: an undeclared or int-declared
